@@ -6,19 +6,31 @@
 Run from the checkout root on a machine with one NVIDIA H100. It
 
   1. prints the card (nvidia-smi name and power limit) and the versions;
-  2. builds the CUDA kernels K1-K3 from ``mccnn_tpu_torch/csrc`` (timed);
+  2. builds the six CUDA kernels from ``mccnn_tpu_torch/csrc`` (timed; one
+     nvcc per source, started together);
   3. holds each kernel against its plain PyTorch version on the card at a
-     middle shape (256 x 384, ndisp 64 and 200, f32 and bf16);
+     middle shape (256 x 384, ndisp 64 and 200; K1-K3 and K5 in f32 and
+     bf16, K7 in f32, K4 in its float and raw int8 modes; K5 also against
+     two K1 launches);
   4. drives the serving path -- ``MatchPipeline.dispatch``/``fetch`` at
      1000 x 1504, ndisp 200, bf16 volumes, paper-default MatchConfig, the
-     fast MC-CNN at full width with seeded random weights -- on three
-     synthetic scenes, checks the output and the kernel launch counts
+     fast MC-CNN at full width with seeded random weights -- on one
+     synthetic scene, checks the output and the kernel launch counts
      (per pair: K1 2, K2 36, K3 8), and prints seconds per pair;
-  5. compares a whole pair on the kernels with the same pair on CPU copies
+  5. drives the batch matcher: one synthetic scene of that size written to
+     a temporary Middlebury layout, then ``mccnn_tpu_torch.cli.match.main``
+     three times in this process -- the exact-f32 schedule
+     (``--cbca_impl pallas``: K1 2, K7 36, K3 8 launches), the int8
+     d-chunked schedule (``--cbca_impl fused8 --volume_dtype bfloat16
+     --cbca_chunk_d 128``: K1 2, K4 72, K3 8) and ``--stage_times
+     --cbca_impl pallas`` (K5 1, K7 36, K3 8) -- checking launch counts,
+     artifacts, ranges, run 1 == run 3 == the K2 pipeline in f32, and run
+     2's bad-2.0 within 0.5 pt of run 1's;
+  6. compares a whole pair on the kernels with the same pair on CPU copies
      (where every wrapper runs its plain version);
-  6. holds each kernel against its plain version at the main-path shapes
-     (both band sides, a K2 round, all four SGM directions of both
-     volumes), times both, and profiles one pair.
+  7. holds each kernel against its plain version at the main-path shapes
+     (1000 x 1504 x 256), times both with CUDA events, computes each
+     kernel's bound from this run's inputs, and profiles one pair.
 
 Every failed phase raises, so the exit code is non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
@@ -28,10 +40,13 @@ The last two lines are the per-kernel JSON summary and
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,8 +56,8 @@ SEED = 0
 MAIN_SHAPE = (1000, 1504)
 MAIN_NDISP = 200
 MIDDLE_SHAPE = (256, 384)
-SCENES = ("translation", "slanted", "occlusion")
-PER_PAIR = {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8}
+SCENES = ("occlusion",)
+BATCH_SCENE = "slanted"
 KERNELS = {
     "band_side": ("mccnn_tpu_torch/csrc/band.cu",
                   "mccnn_tpu/ops/cost_volume_pallas.py:315"),
@@ -50,7 +65,35 @@ KERNELS = {
                    "mccnn_tpu/ops/cbca_fused.py:130"),
     "sgm_sweep": ("mccnn_tpu_torch/csrc/sgm_sweep.cu",
                   "mccnn_tpu/ops/sgm_pallas.py:108"),
+    "cbca_round_int8": ("mccnn_tpu_torch/csrc/cbca_round_int8.cu",
+                        "mccnn_tpu/ops/cbca_fused.py:130"),
+    "band_pair": ("mccnn_tpu_torch/csrc/band_pair.cu",
+                  "mccnn_tpu/ops/cost_volume_pallas.py:187"),
+    "cbca_stencil_round": ("mccnn_tpu_torch/csrc/cbca_stencil.cu",
+                           "mccnn_tpu/ops/cbca_pallas.py:40"),
 }
+# launches per pair on each driven path; kernels not named are launched 0
+# times there
+PER_PAIR = {
+    "serve": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
+    "match exact-f32": {"band_side": 2, "cbca_stencil_round": 36,
+                        "sgm_sweep": 8},
+    "match int8 d-chunked": {"band_side": 2, "cbca_round_int8": 72,
+                             "sgm_sweep": 8},
+    "match stage_times": {"band_pair": 1, "cbca_stencil_round": 36,
+                          "sgm_sweep": 8},
+}
+# the path whose launch count stands in the summary line for each kernel
+OWN_PATH = {
+    "band_side": "serve", "cbca_round": "serve", "sgm_sweep": "serve",
+    "cbca_stencil_round": "match exact-f32",
+    "cbca_round_int8": "match int8 d-chunked",
+    "band_pair": "match stage_times",
+}
+# the card's published peaks (H100 SXM data sheet, dense): device memory
+# rate; f32 outside the tensor cores, bf16 and int8 on them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def log(*parts) -> None:
@@ -73,7 +116,7 @@ def unit_features(rng, height, width, device):
 def scene_images(height, width, family, rng, device, max_disparity):
     import torch
     from mccnn_tpu_torch.pipeline.match import standardize_image
-    from mccnn_tpu_torch.shared import make_scene
+    from mccnn_tpu_torch.utils.scenes import make_scene
 
     s = make_scene(family, rng, height, width, max_disparity)
     left = torch.from_numpy(standardize_image(s["left"])).to(device)
@@ -88,7 +131,7 @@ class Errors:
         self.worst = {name: 0.0 for name in KERNELS}
 
     def record(self, name, what, err, tol):
-        log(f"  {name:10s} {what:34s} max_abs_err {err:.3e}  tol {tol:.3e}")
+        log(f"  {name:18s} {what:34s} max_abs_err {err:.3e}  tol {tol:.3e}")
         self.worst[name] = max(self.worst[name], err)
         if not err <= tol:
             raise AssertionError(f"{name} {what}: {err} > {tol}")
@@ -98,11 +141,21 @@ def check_kernels(device, errors: Errors) -> None:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
     from mccnn_tpu_torch.ops.cbca import cbca, compute_arms
-    from mccnn_tpu_torch.ops.cbca_fused import cbca_fused
+    from mccnn_tpu_torch.ops.cbca_fused import (
+        _quantize_int8,
+        cbca_fused,
+        cbca_int8_plain,
+    )
+    from mccnn_tpu_torch.ops.cbca_pallas import cbca_pallas
     from mccnn_tpu_torch.ops.common import pad_disparities
-    from mccnn_tpu_torch.ops.cost_volume import band_side, band_side_plain
+    from mccnn_tpu_torch.ops.cost_volume import (
+        band_pair,
+        band_pair_plain,
+        band_side,
+        band_side_plain,
+    )
     from mccnn_tpu_torch.ops.sgm import _DIRECTIONS, sweep_cuda, sweep_plain
-    from mccnn_tpu_torch.shared import MatchConfig
+    from mccnn_tpu_torch.utils.config import MatchConfig
 
     config = MatchConfig()
     height, width = MIDDLE_SHAPE
@@ -129,7 +182,20 @@ def check_kernels(device, errors: Errors) -> None:
                               2.0 ** -8 if bf16 else 1e-5)
                 if not torch.equal(got[..., ndisp:], want[..., ndisp:]):
                     raise AssertionError("band_side pad lanes differ")
-            volume = band_side(a, o, ndisp, d_pad, "left", dtype)
+            # K5: one launch, both sides; the same f32 accumulation order as
+            # K1, so equal to two K1 launches bit for bit (tolerance 0.0)
+            pair = band_pair(a, o, ndisp, d_pad, dtype)
+            plain = band_pair_plain(a, o, ndisp, d_pad, dtype)
+            ones = (band_side(a, o, ndisp, d_pad, "left", dtype),
+                    band_side(o, a, ndisp, d_pad, "right", dtype))
+            for side, got, want, one in zip(("left", "right"), pair, plain,
+                                            ones):
+                err = (got.float() - want.float()).abs().max().item()
+                errors.record("band_pair", f"{tag} {side}", err, 0.0)
+                if not torch.equal(got, one):
+                    raise AssertionError(
+                        f"band_pair {tag} {side}: differs from band_side")
+            volume = ones[0]
             got = cbca_fused(volume, arms, 1, config.cbca_distance)
             want = cbca(volume, arms, 1, config.cbca_distance)
             err = (got[..., :ndisp].float()
@@ -140,6 +206,38 @@ def check_kernels(device, errors: Errors) -> None:
                           2.0 ** -8 if bf16 else 1e-6)
             if got[..., ndisp:].float().min().item() < 1e8:
                 raise AssertionError("cbca_round pad lanes fell below 1e8")
+            # K4: exact integer math between one quantization and one
+            # dequantization, so equal to the plain version (tolerance 0.0)
+            got8 = cbca_fused(volume, arms, 2, config.cbca_distance,
+                              int8_storage=True)
+            want8 = cbca_int8_plain(volume, arms, 2, config.cbca_distance)
+            err = (got8.float() - want8.float()).abs().max().item()
+            errors.record("cbca_round_int8", tag, err, 0.0)
+            if got8[..., ndisp:].float().min().item() < 1e8:
+                raise AssertionError("cbca_round_int8 pad lanes fell below 1e8")
+            if not bf16:
+                # K7: the plain round's f32 order (tolerance 0.0); then K2
+                got7 = cbca_pallas(volume, arms, 2, config.cbca_distance)
+                want7 = cbca(volume, arms, 2, config.cbca_distance)
+                err = (got7 - want7).abs().max().item()
+                errors.record("cbca_stencil_round", tag, err, 0.0)
+                if not torch.equal(
+                        got7, cbca_fused(volume, arms, 2,
+                                         config.cbca_distance)):
+                    raise AssertionError("cbca_stencil_round differs from "
+                                         "cbca_round")
+                # K4's raw mode: int8 in, int8 out, BIG lanes stay 127
+                raw = _quantize_int8(volume)[0]
+                got_raw = cbca_fused(raw, arms, 3, config.cbca_distance,
+                                     int8_storage=True)
+                want_raw = cbca_int8_plain(raw, arms, 3,
+                                           config.cbca_distance)
+                err = (got_raw.int() - want_raw.int()).abs().max().item()
+                errors.record("cbca_round_int8", f"{tag} raw int8", err, 0.0)
+                if got_raw.dtype != torch.int8 or not bool(
+                        (got_raw[..., ndisp:] == 127).all()):
+                    raise AssertionError("cbca_round_int8 raw: BIG lanes "
+                                         "left 127")
             for direction in _DIRECTIONS:
                 out_k = torch.empty_like(got)
                 out_p = torch.empty_like(got)
@@ -165,7 +263,8 @@ def drive_main_path(device, launches):
     import torch
     from mccnn_tpu_torch.models.net import init_params
     from mccnn_tpu_torch.pipeline.match import MatchPipeline, standardize_image
-    from mccnn_tpu_torch.shared import bad_n, make_scene
+    from mccnn_tpu_torch.utils.evaluate import bad_n
+    from mccnn_tpu_torch.utils.scenes import make_scene
 
     height, width = MAIN_SHAPE
     rng = np.random.default_rng(SEED)
@@ -210,50 +309,55 @@ def drive_main_path(device, launches):
             f" ({outside:.2e} outside [0, ndisp))  bad-2.0 {bad2:.4f} "
             "(random weights: information only)")
     log(f"  launch counts over {len(scenes)} pairs: {counts}")
-    for name, per_pair in PER_PAIR.items():
-        if counts[name] != per_pair * len(scenes):
-            raise AssertionError(
-                f"{name}: {counts[name]} launches, want "
-                f"{per_pair * len(scenes)}")
+    check_counts("serve", counts, len(scenes))
     log(f"  mean {np.mean(seconds):.4f} s/pair, peak device memory "
         f"{peak_gb:.2f} GB")
     check_dispatch_is_async(pipeline, scenes[0])
-    check_ranges(pipeline, scenes)
+    for family, scene in zip(SCENES, scenes):
+        left, right = (pipeline._to_device(standardize_image(scene[k]))
+                       for k in ("left", "right"))
+        check_ranges(family, pipeline.net, left, right,
+                     volume_dtype="bfloat16")
     return counts, pipeline
+
+
+def check_counts(path: str, counts: dict, pairs: int = 1) -> None:
+    """The exact launches of every kernel on a driven path."""
+    for name in KERNELS:
+        want = PER_PAIR[path].get(name, 0) * pairs
+        if counts[name] != want:
+            raise AssertionError(
+                f"{path}: {name} launched {counts[name]} times, want {want}")
 
 
 def outside_share(disparity) -> float:
     return ((disparity < 0) | (disparity >= MAIN_NDISP)).float().mean().item()
 
 
-def check_ranges(pipeline, scenes) -> None:
-    """The WTA and LR-interpolated maps of each main-path scene lie in
+def check_ranges(what, net, left, right, **options) -> None:
+    """The WTA and LR-interpolated maps of a main-path pair lie in
     [0, ndisp) exactly; only the subpixel fit may leave it."""
     import torch
     from mccnn_tpu_torch.ops.lr_check import lr_consistency_interpolate
     from mccnn_tpu_torch.ops.subpixel import subpixel_enhance
-    from mccnn_tpu_torch.pipeline.match import match_pair, standardize_image
+    from mccnn_tpu_torch.pipeline.match import match_pair
 
-    for family, scene in zip(SCENES, scenes):
-        left, right = (pipeline._to_device(standardize_image(scene[k]))
-                       for k in ("left", "right"))
-        out = match_pair(pipeline.net, left, right, MAIN_NDISP,
-                         pipeline.config, volume_dtype="bfloat16",
-                         return_volumes=True)
-        lr = lr_consistency_interpolate(out["left_disparity"],
-                                        out["right_disparity"], MAIN_NDISP)
-        shares = {
-            "wta left": outside_share(out["left_disparity"]),
-            "wta right": outside_share(out["right_disparity"]),
-            "lr": outside_share(lr),
-        }
-        subpixel = outside_share(
-            subpixel_enhance(lr, out["left_volume"], MAIN_NDISP))
-        log(f"  {family:12s} outside [0, ndisp): {shares}, after subpixel "
-            f"{subpixel:.2e}")
-        if any(shares.values()):
-            raise AssertionError(f"{family}: maps outside [0, ndisp) before "
-                                 f"subpixel: {shares}")
+    out = match_pair(net, left, right, MAIN_NDISP, return_volumes=True,
+                     **options)
+    lr = lr_consistency_interpolate(out["left_disparity"],
+                                    out["right_disparity"], MAIN_NDISP)
+    shares = {
+        "wta left": outside_share(out["left_disparity"]),
+        "wta right": outside_share(out["right_disparity"]),
+        "lr": outside_share(lr),
+    }
+    subpixel = outside_share(
+        subpixel_enhance(lr, out["left_volume"], MAIN_NDISP))
+    log(f"  {what:12s} outside [0, ndisp): {shares}, after subpixel "
+        f"{subpixel:.2e}")
+    if any(shares.values()):
+        raise AssertionError(f"{what}: maps outside [0, ndisp) before "
+                             f"subpixel: {shares}")
     torch.cuda.synchronize()
 
 
@@ -286,6 +390,143 @@ def check_dispatch_is_async(pipeline, scene) -> None:
         f"{len(syncs)}")
     if syncs:
         raise AssertionError(f"dispatch synchronized: {syncs[:3]}")
+
+
+def write_png(image: np.ndarray, path: str) -> None:
+    """Save an image in ~[0, 1] as an 8-bit grayscale PNG."""
+    pixels = np.clip(np.rint(image * 255.0), 0, 255).astype(np.uint8)
+    try:
+        from PIL import Image
+    except ImportError:
+        import cv2
+
+        if not cv2.imwrite(path, pixels):
+            raise RuntimeError(f"could not write {path}")
+    else:
+        Image.fromarray(pixels).save(path)
+
+
+def drive_batch_matcher(device, launches, smi: str) -> dict:
+    """Phase 5: ``cli.match.main`` three times on one full-width scene in a
+    temporary Middlebury layout; returns the launch counts per run."""
+    import torch
+    from mccnn_tpu_torch.cli import match as cli
+    from mccnn_tpu_torch.data.dataset import load_grayscale
+    from mccnn_tpu_torch.io.pfm import read_pfm
+    from mccnn_tpu_torch.models.net import init_params
+    from mccnn_tpu_torch.models.params import save_params
+    from mccnn_tpu_torch.pipeline.match import (
+        STAGES,
+        MatchPipeline,
+        standardize_image,
+    )
+    from mccnn_tpu_torch.utils.evaluate import bad_n
+    from mccnn_tpu_torch.utils.scenes import make_scene
+
+    height, width = MAIN_SHAPE
+    scene = make_scene(BATCH_SCENE, np.random.default_rng(SEED + 3), height,
+                       width, 150)
+    runs = {
+        "match exact-f32": ["--cbca_impl", "pallas", "--volume_dtype",
+                            "float32"],
+        "match int8 d-chunked": ["--cbca_impl", "fused8", "--volume_dtype",
+                                 "bfloat16", "--cbca_chunk_d", "128"],
+        "match stage_times": ["--stage_times", "--cbca_impl", "pallas"],
+    }
+    results = {}
+    log(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_dir = os.path.join(tmp, "data", "scene0")
+        os.makedirs(scene_dir)
+        write_png(scene["left"], os.path.join(scene_dir, "im0.png"))
+        write_png(scene["right"], os.path.join(scene_dir, "im1.png"))
+        with open(os.path.join(scene_dir, "calib.txt"), "w") as f:
+            f.write("cam0=[1 0 0]\ncam1=[1 0 0]\ndoffs=0\nbaseline=100\n"
+                    f"width={width}\nheight={height}\nndisp={MAIN_NDISP}\n")
+        list_file = os.path.join(tmp, "list.txt")
+        with open(list_file, "w") as f:
+            f.write(os.path.join(scene_dir, "im0.png") + "\n")
+        weights = os.path.join(tmp, "weights.npz")
+        save_params(init_params(SEED), weights)
+        # the pair as the CLI reads it (8-bit files), for the comparisons
+        left = standardize_image(load_grayscale(
+            os.path.join(scene_dir, "im0.png")))
+        right = standardize_image(load_grayscale(
+            os.path.join(scene_dir, "im1.png")))
+
+        for tag, (path, flags) in enumerate(runs.items()):
+            save_dir = os.path.join(tmp, f"out{tag}")
+            argv = ["--list_file", list_file, "--resume", weights,
+                    "--data_dir", os.path.join(tmp, "data"),
+                    "--save_dir", save_dir, "--tag", "smoke", "--start", "0",
+                    "--end", "0", "--device", str(device), *flags]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches.reset()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                cli.main(argv)
+            counts = launches.snapshot()
+            torch.cuda.synchronize()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            check_counts(path, counts)
+            out = os.path.join(save_dir, "submit_smoke", "scene0")
+            pgm = os.path.join(save_dir, "submit_smoke_imgs", "scene0",
+                               "disp0MCCNN.pgm")
+            if not os.path.getsize(pgm) > height * width:
+                raise AssertionError(f"{path}: {pgm} is short")
+            with open(os.path.join(out, "timeMCCNN.txt")) as f:
+                seconds = float(f.read())
+            disparity = read_pfm(os.path.join(out, "disp0MCCNN.pfm"))
+            if disparity.shape != (height, width):
+                raise AssertionError(f"{path}: PFM shape {disparity.shape}")
+            if not np.isfinite(disparity).all():
+                raise AssertionError(f"{path}: non-finite disparity")
+            outside = float(((disparity < 0)
+                             | (disparity >= MAIN_NDISP)).mean())
+            if outside > 1e-3:
+                raise AssertionError(f"{path}: {outside} of pixels outside "
+                                     "[0, ndisp)")
+            bad2 = float(bad_n(disparity, scene["gt"], 2.0))
+            launched = {k: v for k, v in counts.items() if v}
+            log(f"  {path}: {seconds:.4f} s/pair, launches {launched}, peak "
+                f"device memory {peak_gb:.2f} GB, bad-2.0 {bad2:.4f} (random "
+                f"weights), {outside:.2e} outside [0, ndisp)")
+            results[path] = {"counts": counts, "disparity": disparity,
+                             "bad2": bad2, "printed": printed.getvalue()}
+
+    # run 3's ten stage lines, in the CLI's format
+    stage_lines = [line for line in
+                   results["match stage_times"]["printed"].splitlines()
+                   if line.startswith("  ") and line.endswith(" ms")]
+    if [line.split()[0] for line in stage_lines] != list(STAGES):
+        raise AssertionError(f"stage_times printed {stage_lines}")
+    log(smi)
+    for line in stage_lines:
+        log(line)
+
+    exact = results["match exact-f32"]["disparity"]
+    if not np.array_equal(exact, results["match stage_times"]["disparity"]):
+        raise AssertionError("stage_times and __call__ disparities differ")
+    # K2 and K7 both equal the plain f32 round bit for bit, so the default
+    # f32 pipeline must give the same map as --cbca_impl pallas
+    pipeline = MatchPipeline(init_params(SEED), volume_dtype="float32",
+                             bucket=1, device=device)
+    if not np.array_equal(exact, pipeline(left, right, MAIN_NDISP)):
+        raise AssertionError("--cbca_impl pallas (K7) and the default f32 "
+                             "pipeline (K2) disagree")
+    delta = abs(results["match int8 d-chunked"]["bad2"]
+                - results["match exact-f32"]["bad2"])
+    log(f"  exact-f32 == stage_times == K2 f32 pipeline; int8 d-chunked "
+        f"bad-2.0 within {delta:.4f} of exact-f32 (limit 0.005)")
+    if not delta <= 0.005:
+        raise AssertionError(f"int8 bad-2.0 is {delta} from exact f32")
+
+    tensors = [pipeline._to_device(x) for x in (left, right)]
+    check_ranges("exact-f32", pipeline.net, *tensors, cbca_impl="pallas")
+    check_ranges("int8 chunked", pipeline.net, *tensors, cbca_impl="fused8",
+                 volume_dtype="bfloat16", cbca_chunk_d=128)
+    return {path: r["counts"] for path, r in results.items()}
 
 
 def compare_whole_pair(device) -> None:
@@ -331,28 +572,54 @@ def time_events(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(bytes_moved: float, operations: float, kind: str):
+    """(ms, "bytes" | "operations"): the least time the card could take:
+    each input read and each output written once at the memory rate, or
+    the operations at the peak rate of their type, whichever is longer."""
+    by_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    by_ops = 1e3 * operations / PEAK_OPS_PER_S[kind]
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
 def main_shape_kernels(device, errors: Errors) -> dict:
-    """Phase 6: each kernel against its plain version at the main-path
-    shapes (1000 x 1504, ndisp 200, bf16, D_pad 256): outputs, then times."""
+    """Phase 7: each kernel against its plain version at the main-path
+    shapes (1000 x 1504, ndisp 200, D_pad 256; K1-K3 in bf16 as the serving
+    path runs them, K5 and K7 in f32 and K4 on int8 as the batch matcher
+    runs them, K4 timed on the 128-lane chunk the d-chunked run hands it):
+    outputs, then times and bounds."""
     import torch
     from mccnn_tpu_torch.ops.cbca import (
         cbca_round,
         compute_arms,
         inverse_region_size,
     )
-    from mccnn_tpu_torch.ops.cbca_fused import cbca_round_cuda
+    from mccnn_tpu_torch.ops.cbca_fused import (
+        _quantize_int8,
+        cbca_round_cuda,
+        cbca_round_int8_cuda,
+        cbca_round_int8_plain,
+    )
+    from mccnn_tpu_torch.ops.cbca_pallas import cbca_stencil_round_cuda
     from mccnn_tpu_torch.ops.common import pad_disparities
-    from mccnn_tpu_torch.ops.cost_volume import band_side, band_side_plain
+    from mccnn_tpu_torch.ops.cost_volume import (
+        band_pair,
+        band_pair_plain,
+        band_side,
+        band_side_plain,
+    )
     from mccnn_tpu_torch.ops.sgm import _DIRECTIONS, sweep_cuda, sweep_plain
-    from mccnn_tpu_torch.shared import MatchConfig
+    from mccnn_tpu_torch.utils.config import MatchConfig
 
     config = MatchConfig()
+    distance = config.cbca_distance
     height, width = MAIN_SHAPE
     ndisp, d_pad, dtype = MAIN_NDISP, pad_disparities(MAIN_NDISP), \
         torch.bfloat16
     rng = np.random.default_rng(SEED)
-    fl = unit_features(rng, height, width, device).to(dtype)
-    fr = unit_features(rng, height, width, device).to(dtype)
+    fl32 = unit_features(rng, height, width, device)
+    fr32 = unit_features(rng, height, width, device)
+    fl, fr = fl32.to(dtype), fr32.to(dtype)
     _, left, right = scene_images(height, width, "occlusion", rng, device,
                                   150)
 
@@ -363,7 +630,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         if got[..., ndisp:].float().min().item() < 1e8:
             raise AssertionError(f"{name} {what}: pad lanes fell below 1e8")
 
-    # the main path's operands: (anchor, other) per side, arms of the
+    # the serving path's operands: (anchor, other) per side, arms of the
     # side's own image; sums of bf16 values round one ulp (2^-8) apart at
     # |cost| <= 1, SGM costs two ulps at the largest cost
     sides = {"left": (fl, fr, left, "L"), "right": (fr, fl, right, "R")}
@@ -373,16 +640,14 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         compare("band_side", side, volume,
                 band_side_plain(anchor, other, ndisp, d_pad, side, dtype),
                 2.0 ** -8)
-        arms = compute_arms(image, config.cbca_intensity, config.cbca_distance)
-        inv = inverse_region_size(arms, config.cbca_distance).contiguous()
+        arms = compute_arms(image, config.cbca_intensity, distance)
+        inv = inverse_region_size(arms, distance).contiguous()
         scratch = torch.empty(volume.shape, dtype=torch.float32,
                               device=device)
         aggregated = torch.empty_like(volume)
-        cbca_round_cuda(volume, scratch, aggregated, arms, inv,
-                        config.cbca_distance)
+        cbca_round_cuda(volume, scratch, aggregated, arms, inv, distance)
         compare("cbca_round", side, aggregated,
-                cbca_round(volume, arms, inv, config.cbca_distance),
-                2.0 ** -8)
+                cbca_round(volume, arms, inv, distance), 2.0 ** -8)
         for direction in _DIRECTIONS:
             out_k = torch.empty_like(volume)
             out_p = torch.empty_like(volume)
@@ -393,10 +658,51 @@ def main_shape_kernels(device, errors: Errors) -> dict:
             top = out_p[..., :ndisp].float().abs().max().item()
             compare("sgm_sweep", f"{side} dir {direction}", out_k, out_p,
                     2 * bf16_ulp(top))
-        volumes[side] = (volume, arms, inv, scratch, aggregated)
+        # the int8 schedule's operand: this side's bf16 volume, quantized;
+        # integer math, tolerance 0.0, at the full depth and at the
+        # 128-lane chunk the d-chunked run hands the kernel
+        q = _quantize_int8(aggregated)[0]
+        for what, block in (("", q), (" 128-lane chunk",
+                                      q[..., :128].contiguous())):
+            got = torch.empty_like(block)
+            cbca_round_int8_cuda(block, got, arms, inv, distance)
+            want = cbca_round_int8_plain(block, arms, inv, distance)
+            err = (got.int() - want.int()).abs().max().item()
+            errors.record("cbca_round_int8", side + what, err, 0.0)
+            if not bool((got[..., ndisp:] == 127).all()):
+                raise AssertionError("cbca_round_int8: BIG lanes left 127")
+        volumes[side] = (volume, arms, inv, scratch, aggregated, q)
+    del out_k, out_p, got, want, block
     torch.cuda.synchronize()
 
-    volume, arms, inv, scratch, out = volumes["left"]
+    # the batch matcher's f32 operands: K5 builds both volumes from the f32
+    # descriptors (tolerance 0.0 against its plain version and against two
+    # K1 launches), K7 aggregates them
+    pair32 = band_pair(fl32, fr32, ndisp, d_pad, torch.float32)
+    plain32 = band_pair_plain(fl32, fr32, ndisp, d_pad, torch.float32)
+    for side, got, want in zip(("left", "right"), pair32, plain32):
+        compare("band_pair", f"{side} f32 vs plain", got, want, 0.0)
+    del plain32
+    ones = (band_side(fl32, fr32, ndisp, d_pad, "left", torch.float32),
+            band_side(fr32, fl32, ndisp, d_pad, "right", torch.float32))
+    for side, got, one in zip(("left", "right"), pair32, ones):
+        compare("band_pair", f"{side} f32 vs two band_side", got, one, 0.0)
+    del ones
+    for side, vol32 in zip(("left", "right"), pair32):
+        _, arms, inv, _, _, _ = volumes[side]
+        got = torch.empty_like(vol32)
+        cbca_stencil_round_cuda(vol32, got, arms, inv, distance)
+        compare("cbca_stencil_round", f"{side} f32", got,
+                cbca_round(vol32, arms, inv, distance), 0.0)
+    torch.cuda.synchronize()
+
+    volume, arms, inv, scratch, out, q = volumes["left"]
+    vol32, out32 = pair32[0], got
+    # K4 as its path launches it: one 128-lane chunk of the quantized volume
+    chunk_lanes = 128
+    q_chunk = q[..., :chunk_lanes].contiguous()
+    out8, out8_chunk = torch.empty_like(q), torch.empty_like(q_chunk)
+    del volumes, pair32
     times = {}
 
     def pair(name, kernel, plain, reps_k, reps_p):
@@ -404,8 +710,9 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         ms_k1 = time_events(kernel, reps_k)
         ms_k2 = time_events(kernel, reps_k)
         ms_p2 = time_events(plain, reps_p)
-        times[name] = ((ms_k1 + ms_k2) / 2, (ms_p1 + ms_p2) / 2)
-        log(f"  {name:10s} kernel {ms_k1:.4f} / {ms_k2:.4f} ms, plain "
+        times[name] = {"ms": (ms_k1 + ms_k2) / 2,
+                       "plain_ms": (ms_p1 + ms_p2) / 2}
+        log(f"  {name:18s} kernel {ms_k1:.4f} / {ms_k2:.4f} ms, plain "
             f"{ms_p1:.4f} / {ms_p2:.4f} ms (plain, kernel, kernel, plain)")
 
     pair("band_side",
@@ -413,9 +720,8 @@ def main_shape_kernels(device, errors: Errors) -> dict:
          lambda: band_side_plain(fl, fr, ndisp, d_pad, "left", dtype),
          10, 2)
     pair("cbca_round",
-         lambda: cbca_round_cuda(volume, scratch, out, arms, inv,
-                                 config.cbca_distance),
-         lambda: cbca_round(volume, arms, inv, config.cbca_distance),
+         lambda: cbca_round_cuda(volume, scratch, out, arms, inv, distance),
+         lambda: cbca_round(volume, arms, inv, distance),
          20, 2)
     for direction, label in (((0, 1), "horizontal"), ((1, 0), "vertical")):
         pair(f"sgm_sweep {label}",
@@ -425,7 +731,57 @@ def main_shape_kernels(device, errors: Errors) -> dict:
                                              d, config),
              10, 1)
     h, v = times.pop("sgm_sweep horizontal"), times.pop("sgm_sweep vertical")
-    times["sgm_sweep"] = ((h[0] + v[0]) / 2, (h[1] + v[1]) / 2)
+    times["sgm_sweep"] = {k: (h[k] + v[k]) / 2 for k in h}
+    pair("cbca_round_int8 full depth",
+         lambda: cbca_round_int8_cuda(q, out8, arms, inv, distance),
+         lambda: cbca_round_int8_plain(q, arms, inv, distance),
+         20, 2)
+    del times["cbca_round_int8 full depth"]  # logged only: no path runs it
+    pair("cbca_round_int8",
+         lambda: cbca_round_int8_cuda(q_chunk, out8_chunk, arms, inv,
+                                      distance),
+         lambda: cbca_round_int8_plain(q_chunk, arms, inv, distance),
+         20, 2)
+    pair("band_pair",
+         lambda: band_pair(fl32, fr32, ndisp, d_pad, torch.float32),
+         lambda: band_pair_plain(fl32, fr32, ndisp, d_pad, torch.float32),
+         10, 2)
+    pair("cbca_stencil_round",
+         lambda: cbca_stencil_round_cuda(vol32, out32, arms, inv, distance),
+         lambda: cbca_round(vol32, arms, inv, distance),
+         20, 2)
+
+    # bounds from this run's inputs. Operations: a band output in range is
+    # 64 multiply-adds; a CBCA output adds one value per arm pixel (this
+    # image's arms) and multiplies once; an SGM output takes about 8 f32
+    # operations. The rate is that of the operands' type: K1's bf16
+    # descriptors multiply on the tensor cores at the bf16 rate, K5's f32
+    # ones at the f32 rate (TF32 would change the result); the f32 adds of
+    # K2, K7 and K3 at the f32 rate; K4's integer adds at the int8 rate,
+    # on the 128-lane chunk it is launched on.
+    elements = height * width * d_pad
+    planes = height * width * (4 * 4 + 4)  # four arm maps and 1 / region
+    band_flop = 2 * 64 * height * sum(width - d for d in range(ndisp))
+    adds_per_lane = float(sum(a.sum().item() for a in arms) + height * width)
+    arm_adds = d_pad * adds_per_lane
+    chunk = height * width * chunk_lanes
+    bounds = {
+        "band_side": bound(2 * height * width * 64 * 2 + elements * 2,
+                           band_flop, "bf16"),
+        "band_pair": bound(2 * height * width * 64 * 4 + 2 * elements * 4,
+                           2 * band_flop, "f32"),
+        "cbca_round": bound(2 * elements * 2 + planes, arm_adds, "f32"),
+        "cbca_stencil_round": bound(2 * elements * 4 + planes, arm_adds,
+                                    "f32"),
+        "cbca_round_int8": bound(2 * chunk + planes,
+                                 chunk_lanes * adds_per_lane, "int8"),
+        "sgm_sweep": bound(2 * elements * 2 + 2 * height * width,
+                           8 * elements, "f32"),
+    }
+    for name, (ms, by) in bounds.items():
+        times[name].update(bound_ms=ms, bound_by=by)
+        log(f"  {name:18s} bound {ms:.4f} ms by {by}: the kernel takes "
+            f"{times[name]['ms'] / ms:.1f} x that")
     return times
 
 
@@ -435,7 +791,7 @@ def profile_pair(pipeline) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from mccnn_tpu_torch.pipeline.match import standardize_image
-    from mccnn_tpu_torch.shared import make_scene
+    from mccnn_tpu_torch.utils.scenes import make_scene
 
     scene = make_scene("slanted", np.random.default_rng(SEED + 2),
                        *MAIN_SHAPE, 150)
@@ -505,15 +861,20 @@ def main() -> int:
     errors = Errors()
     check_kernels(device, errors)
 
-    log(f"== main path: MatchPipeline {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]}, "
+    log(f"== serving path: MatchPipeline {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]}, "
         f"ndisp {MAIN_NDISP}, bf16, paper defaults")
     counts, pipeline = drive_main_path(device, build.LAUNCHES)
+    launches = {"serve": counts}
+
+    log(f"== batch matcher: cli.match.main on one {MAIN_SHAPE[0]} x "
+        f"{MAIN_SHAPE[1]} ndisp-{MAIN_NDISP} scene, three schedules")
+    launches.update(drive_batch_matcher(device, build.LAUNCHES, smi))
 
     log("== whole pair: kernels against CPU copies (256 x 384)")
     compare_whole_pair(device)
 
     log("== kernels against their plain versions at the main-path shapes "
-        "(bf16, 1000 x 1504 x 256): outputs, then times")
+        "(1000 x 1504 x 256): outputs, then times and bounds")
     times = main_shape_kernels(device, errors)
 
     log("== profile of one main-path pair")
@@ -525,10 +886,15 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": counts[name],
+            "launches": launches[OWN_PATH[name]][name],
             "max_abs_err": errors.worst[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
+            **times[name],
+            # no single PyTorch call computes a band read off a
+            # correlation's diagonals, a sum over data-dependent cross
+            # arms, or a directional DP sweep
+            "library_ms": None,
+            "launches_by_path": {path: c[name]
+                                 for path, c in launches.items()},
         }
         for name, (source, replaces) in KERNELS.items()
     ]}

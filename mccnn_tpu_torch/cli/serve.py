@@ -104,8 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bucket", type=int, default=64,
                         help="pad images to multiples of this")
     parser.add_argument("--cbca_impl", type=str, default="auto",
-                        help="auto, fused or xla: each runs the one CBCA of "
-                             "the port (kernel K2 on CUDA)")
+                        help="auto, fused or xla run kernel K2 on CUDA; "
+                             "pallas is the exact-f32 single-pass kernel K7, "
+                             "fused8 the int8 kernel K4")
     parser.add_argument("--volume_dtype", type=str, default="float32")
     parser.add_argument("--cbca_chunk_d", type=int, default=0)
     return parser
@@ -116,15 +117,15 @@ def main(argv=None, stdin=None, stdout=None) -> None:
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
 
-    from mccnn_tpu_torch.models.params import load_any
-    from mccnn_tpu_torch.pipeline.match import MatchPipeline, standardize_image
-    from mccnn_tpu_torch.shared import (
-        load_grayscale,
-        parse_calib,
+    from mccnn_tpu_torch.data.dataset import load_grayscale
+    from mccnn_tpu_torch.io.calib import parse_calib
+    from mccnn_tpu_torch.io.middlebury import (
         save_disparity_pgm,
         save_time_file,
-        write_pfm,
     )
+    from mccnn_tpu_torch.io.pfm import write_pfm
+    from mccnn_tpu_torch.models.params import load_any
+    from mccnn_tpu_torch.pipeline.match import MatchPipeline, standardize_image
 
     pipeline = MatchPipeline(
         load_any(args.resume),

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``mccnn_tpu_torch/csrc/*.cu``).
 
 At first use the sources are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
+(``sm_90a``), one compiler process per source file, all started together,
+and linked into one shared library with a plain C interface, which is
 loaded with ``ctypes``. That takes seconds; an extension that includes
 PyTorch's headers would take minutes to build. In a source checkout the
 library lives in ``build/mccnn_tpu_torch/`` at the checkout root; an
@@ -35,10 +36,9 @@ _CHECKOUT = Path(__file__).resolve().parents[2]
 # a checkout has setup.py beside the package; site-packages does not
 BUILD_DIR = (_CHECKOUT / "build" if (_CHECKOUT / "setup.py").exists()
              else Path.home() / ".cache") / "mccnn_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,8 +47,13 @@ _F = ctypes.c_float
 # be cut to 32 bits), every return a cudaError_t as int
 _SIGNATURES = {
     "mccnn_band_side": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mccnn_band_pair": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mccnn_cbca_round": (_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P),
+    "mccnn_cbca_stencil_round": (_P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _P),
+    "mccnn_cbca_round_int8": (_P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _P),
     "mccnn_sgm_sweep": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _F, _F, _I, _P),
 }
@@ -57,7 +62,8 @@ _SIGNATURES = {
 class LaunchCounts:
     """Launches per kernel; each wrapper adds one where it launches."""
 
-    NAMES = ("band_side", "cbca_round", "sgm_sweep")
+    NAMES = ("band_side", "cbca_round", "sgm_sweep", "cbca_round_int8",
+             "band_pair", "cbca_stencil_round")
 
     def __init__(self):
         self.counts = dict.fromkeys(self.NAMES, 0)
@@ -114,20 +120,31 @@ def build() -> tuple[Path, float]:
         return target, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc = _nvcc()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objects = [os.path.join(objdir, src.stem + ".o") for src in cu]
+        commands = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(cu, objects)]
+        compilers = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in commands]
+        outputs = [proc.communicate()[0] for proc in compilers]
+        failed = [proc.returncode for proc in compilers if proc.returncode]
+        commands.append([nvcc, *_ARCH, "-shared", "-o", tmp, *objects])
+        if not failed:
+            link = subprocess.run(commands[-1], capture_output=True, text=True)
+            outputs.append(link.stdout + link.stderr)
+            failed = [link.returncode] if link.returncode else []
     seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    log = "".join(" ".join(cmd) + "\n" + out
+                  for cmd, out in zip(commands, outputs))
+    (BUILD_DIR / "build.log").write_text(log)
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log[-6000:]}")
     os.replace(tmp, target)
     return target, seconds
 

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from mccnn_tpu_torch.shared import NetConfig
+from mccnn_tpu_torch.utils.config import NetConfig
 
 NumpyParams = Dict[str, Dict[str, np.ndarray]]
 

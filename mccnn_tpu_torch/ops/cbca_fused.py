@@ -1,4 +1,4 @@
-"""CBCA rounds on kernel K2 (mccnn_tpu/ops/cbca_fused.py).
+"""CBCA rounds on kernels K2 and K4 (mccnn_tpu/ops/cbca_fused.py).
 
 ``cbca_fused`` computes the region-size normalizer once per call, then
 runs one launch of ``csrc/cbca_round.cu`` per round on a CUDA tensor, or
@@ -9,6 +9,15 @@ in its DEFAULT-precision vertical phase.
 
 On CUDA the rounds update a copy of the input in place, with one f32
 scratch volume for the horizontal sums.
+
+``cbca_fused(..., int8_storage=True)`` is the int8 memory mode ("fused8"):
+the volume is quantized once per call (``_quantize_int8``: one symmetric
+scale from the non-BIG values, BIG lanes pinned to 127), every round is
+exact integer math on kernel K4 (``csrc/cbca_round_int8.cu``; on a CPU
+tensor ``cbca_int8_plain``, the counterpart of JAX's ``cbca_int8_xla``), and
+the result is dequantized. An int8 input is taken as pre-quantized ("raw"
+mode): int8 in, int8 out, no scale. Kernel and plain version agree bit for
+bit.
 """
 
 from __future__ import annotations
@@ -22,31 +31,32 @@ from mccnn_tpu_torch.kernels.build import (
     require_cuda,
     stream_handle,
 )
-from mccnn_tpu_torch.ops.cbca import CrossArms, cbca, inverse_region_size
+from mccnn_tpu_torch.ops.cbca import (
+    CrossArms,
+    cbca,
+    cbca_round,
+    inverse_region_size,
+)
+from mccnn_tpu_torch.ops.cbca_rounds import check_round_operands, run_rounds
+from mccnn_tpu_torch.ops.common import BIG_COST
 
-_MAX_RADIUS = 16  # the kernel's halo
+_BIG_CUTOFF = 1e8  # values at or above this are BIG_COST pad sentinels
+_INT8_LANES = 32  # disparities per K4 block: D must be a multiple
 
 
 def cbca_round_cuda(vol_in: torch.Tensor, scratch: torch.Tensor,
                     vol_out: torch.Tensor, arms: CrossArms,
                     inv_region: torch.Tensor, distance_threshold: int) -> None:
     """Launch one K2 round: vol_out <- round(vol_in) (may alias vol_in)."""
-    storage = (torch.float32, torch.bfloat16)
-    require_cuda("volume", vol_in, storage)
-    require_cuda("output volume", vol_out, (vol_in.dtype,))
+    radius = check_round_operands(vol_in, vol_out, arms, inv_region,
+                                  distance_threshold,
+                                  (torch.float32, torch.bfloat16), 128,
+                                  in_place=True)
     require_cuda("scratch", scratch, (torch.float32,))
-    for name, plane in zip(CrossArms._fields, arms):
-        require_cuda(f"{name} arm", plane, (torch.int32,))
-    require_cuda("inv_region", inv_region, (torch.float32,))
+    if scratch.shape != vol_in.shape:
+        raise ValueError("cbca round: the scratch must have the volume's "
+                         "shape")
     height, width, d_pad = vol_in.shape
-    if (vol_out.shape != vol_in.shape or scratch.shape != vol_in.shape
-            or any(a.shape != (height, width) for a in arms)
-            or inv_region.shape != (height, width) or d_pad % 128):
-        raise ValueError("cbca round: mismatched shapes or D_pad % 128 != 0")
-    radius = distance_threshold - 1
-    if not 0 <= radius <= _MAX_RADIUS:
-        raise ValueError(
-            f"distance_threshold {distance_threshold} exceeds the kernel halo")
     code = library().mccnn_cbca_round(
         vol_in.data_ptr(), scratch.data_ptr(), vol_out.data_ptr(),
         arms.left.data_ptr(), arms.right.data_ptr(), arms.up.data_ptr(),
@@ -57,9 +67,104 @@ def cbca_round_cuda(vol_in: torch.Tensor, scratch: torch.Tensor,
     LAUNCHES.add("cbca_round")
 
 
+def _quantize_int8(volume: torch.Tensor):
+    """Symmetric per-call int8 quantization of a cost volume: (q, scale).
+
+    One scale per call from the valid (non-BIG) values: rounds are convex
+    averages, so the entry scale stays valid for every later round.
+    BIG_COST lanes quantize to exactly 127 and valid values to at most 126
+    in magnitude, so q == 127 identifies BIG: the lanes average only among
+    themselves and stay 127 under integer-average rounds.
+    """
+    vol_f = volume.float()
+    big = vol_f >= _BIG_CUTOFF
+    amax = torch.where(big, 0.0, vol_f.abs()).max()
+    # a true division: torch evaluates ``126.0 / tensor`` as a reciprocal
+    # times 126, which rounds differently
+    scale = torch.full_like(amax, 126.0) / torch.clamp(amax, min=1e-30)
+    q = torch.clamp(torch.round(vol_f * scale), -126.0, 126.0)
+    q = torch.where(big, 127.0, q).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_int8(q: torch.Tensor, scale, out_dtype) -> torch.Tensor:
+    """Invert ``_quantize_int8``; q == 127 restores the BIG_COST sentinel."""
+    deq = q.float() / scale
+    return torch.where(q == 127, BIG_COST, deq).to(out_dtype)
+
+
+def cbca_round_int8_plain(q: torch.Tensor, arms: CrossArms,
+                          inv_region: torch.Tensor,
+                          distance_threshold: int) -> torch.Tensor:
+    """One int8 round: round_half_even(sum(q) * inv_region), stored int8.
+
+    The f32 sums of at most 27 x 27 int8 values are exact integers (below
+    2^24) in any order.
+    """
+    out = cbca_round(q.float(), arms, inv_region, distance_threshold)
+    return torch.round(out).to(torch.int8)
+
+
+def cbca_int8_plain(volume: torch.Tensor, arms: CrossArms,
+                    num_iterations: int,
+                    distance_threshold: int = 14) -> torch.Tensor:
+    """Plain version of the int8-storage aggregation (K4's reference).
+
+    A float volume is quantized once, aggregated and dequantized to its own
+    dtype; an int8 volume is pre-quantized and stays int8.
+    """
+    if num_iterations == 0:
+        return volume
+    raw = volume.dtype == torch.int8
+    q, scale = (volume, None) if raw else _quantize_int8(volume)
+    inv_region = inverse_region_size(arms, distance_threshold)
+    for _ in range(num_iterations):
+        q = cbca_round_int8_plain(q, arms, inv_region, distance_threshold)
+    return q if raw else _dequantize_int8(q, scale, volume.dtype)
+
+
+def cbca_round_int8_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
+                         arms: CrossArms, inv_region: torch.Tensor,
+                         distance_threshold: int) -> None:
+    """Launch one K4 round: vol_out <- round(vol_in), out of place."""
+    radius = check_round_operands(vol_in, vol_out, arms, inv_region,
+                                  distance_threshold, (torch.int8,),
+                                  _INT8_LANES)
+    height, width, depth = vol_in.shape
+    code = library().mccnn_cbca_round_int8(
+        vol_in.data_ptr(), vol_out.data_ptr(), arms.left.data_ptr(),
+        arms.right.data_ptr(), arms.up.data_ptr(), arms.down.data_ptr(),
+        inv_region.data_ptr(), height, width, depth, radius,
+        stream_handle(vol_in),
+    )
+    check(code, "cbca_round_int8")
+    LAUNCHES.add("cbca_round_int8")
+
+
+def _cbca_fused_int8(volume: torch.Tensor, arms: CrossArms,
+                     num_iterations: int,
+                     distance_threshold: int) -> torch.Tensor:
+    if num_iterations == 0 or volume.device.type == "cpu":
+        return cbca_int8_plain(volume, arms, num_iterations,
+                               distance_threshold)
+    raw = volume.dtype == torch.int8
+    q, scale = (volume, None) if raw else _quantize_int8(volume)
+    q = run_rounds(cbca_round_int8_cuda, q.contiguous(), arms,
+                   num_iterations, distance_threshold)
+    return q if raw else _dequantize_int8(q, scale, volume.dtype)
+
+
 def cbca_fused(volume: torch.Tensor, arms: CrossArms, num_iterations: int,
-               distance_threshold: int = 14) -> torch.Tensor:
-    """Drop-in for ``ops.cbca.cbca`` (f32 and bf16 volumes)."""
+               distance_threshold: int = 14,
+               int8_storage: bool = False) -> torch.Tensor:
+    """Drop-in for ``ops.cbca.cbca`` (f32 and bf16 volumes).
+
+    ``int8_storage=True`` runs the rounds in int8 (K4); an int8 volume is
+    then taken as pre-quantized and returned as int8.
+    """
+    if int8_storage:
+        return _cbca_fused_int8(volume, arms, num_iterations,
+                                distance_threshold)
     if num_iterations == 0 or volume.device.type == "cpu":
         return cbca(volume, arms, num_iterations, distance_threshold)
     inv_region = inverse_region_size(arms, distance_threshold)

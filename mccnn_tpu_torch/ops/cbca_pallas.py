@@ -1,0 +1,57 @@
+"""Exact-f32 single-pass CBCA rounds on kernel K7
+(mccnn_tpu/ops/cbca_pallas.py).
+
+``cbca_pallas`` is a drop-in for ``ops.cbca.cbca`` on f32 volumes, the
+``cbca_impl="pallas"`` backend: the region-size normalizer once per call,
+then one launch of ``csrc/cbca_stencil.cu`` per round on a CUDA tensor, or
+the plain round (``ops/cbca.py``) on a CPU tensor. The kernel keeps the
+horizontal sums in shared memory (no scratch volume in device memory) and
+sums in the plain round's order, so the two agree bit for bit.
+
+A round reads its neighbours, so on CUDA the rounds alternate between two
+buffers: a copy of the input and one more volume.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mccnn_tpu_torch.kernels.build import (
+    LAUNCHES,
+    check,
+    library,
+    stream_handle,
+)
+from mccnn_tpu_torch.ops.cbca import CrossArms, cbca
+from mccnn_tpu_torch.ops.cbca_rounds import check_round_operands, run_rounds
+
+_LANES = 8  # disparities per block: D must be a multiple
+
+
+def cbca_stencil_round_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
+                            arms: CrossArms, inv_region: torch.Tensor,
+                            distance_threshold: int) -> None:
+    """Launch one K7 round: vol_out <- round(vol_in), out of place."""
+    radius = check_round_operands(vol_in, vol_out, arms, inv_region,
+                                  distance_threshold, (torch.float32,), _LANES)
+    height, width, depth = vol_in.shape
+    code = library().mccnn_cbca_stencil_round(
+        vol_in.data_ptr(), vol_out.data_ptr(), arms.left.data_ptr(),
+        arms.right.data_ptr(), arms.up.data_ptr(), arms.down.data_ptr(),
+        inv_region.data_ptr(), height, width, depth, radius,
+        stream_handle(vol_in),
+    )
+    check(code, "cbca_stencil_round")
+    LAUNCHES.add("cbca_stencil_round")
+
+
+def cbca_pallas(volume: torch.Tensor, arms: CrossArms, num_iterations: int,
+                distance_threshold: int = 14) -> torch.Tensor:
+    """Drop-in for ``ops.cbca.cbca`` on f32 volumes, backed by K7."""
+    if volume.dtype != torch.float32:
+        raise ValueError(
+            f"cbca_pallas takes float32 volumes, got {volume.dtype}")
+    if num_iterations == 0 or volume.device.type == "cpu":
+        return cbca(volume, arms, num_iterations, distance_threshold)
+    return run_rounds(cbca_stencil_round_cuda, volume, arms, num_iterations,
+                      distance_threshold)

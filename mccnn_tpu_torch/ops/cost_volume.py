@@ -9,11 +9,19 @@ filled sequentially with the mean of the <= 3 nearest columns
 (``_border_fill_left`` / ``_border_fill_right``).
 
 ``band_side`` is the wrapper of kernel K1 (``csrc/band.cu``, replacing
-mccnn_tpu/ops/cost_volume_pallas.py::_band_kernel_mxu_one): on a CUDA
-tensor it launches the kernel, on a CPU tensor it runs ``band_side_plain``.
-For bf16 volumes the caller passes bf16 descriptors (the JAX pipeline casts
-them too); products of bf16 values are exact in f32, and the correlation
-accumulates in f32 either way.
+mccnn_tpu/ops/cost_volume_pallas.py::_band_kernel_mxu_one) and
+``band_pair`` that of K5 (``csrc/band_pair.cu``, replacing
+``_band_kernel_mxu``: both sides in one launch): on a CUDA tensor they
+launch the kernel, on a CPU tensor they run ``band_side_plain`` /
+``band_pair_plain``. For bf16 volumes the caller passes bf16 descriptors
+(the JAX pipeline casts them too); products of bf16 values are exact in
+f32, and the correlation accumulates in f32 either way.
+
+``cost_volume_pair(method=...)``: "auto" and "pallas" run the kernels (K1
+for one side, K5 for both); "matmul" and "rolldot" are the JAX package's
+XLA paths as torch ops, on any device: ``_scores_matmul`` (the plain band's
+own correlation, the counterpart of ``_left_scores_matmul``) or
+``_left_scores_rolldot``, then ``_right_from_left``.
 """
 
 from __future__ import annotations
@@ -32,33 +40,42 @@ from mccnn_tpu_torch.ops.common import BIG_COST, pad_disparities
 _STORAGE = (torch.float32, torch.bfloat16)
 
 
-def band_side_plain(anchor: torch.Tensor, other: torch.Tensor, ndisp: int,
-                    d_pad: int, side: str, dtype: torch.dtype,
-                    row_chunk: int = 8) -> torch.Tensor:
-    """Finalized band of one side by row-block correlation matmuls.
-
-    ``corr[h, u, v] = <anchor(h, u), other(h, v)>`` in f32, then the band
-    ``v = u - d`` (left) or ``v = u + d`` (right) is gathered; out-of-image
-    entries are 0 and pad lanes ``BIG_COST``.
+def _scores_matmul(anchor: torch.Tensor, other: torch.Tensor, d_pad: int,
+                   side: str, row_chunk: int = 8) -> torch.Tensor:
+    """Raw f32 scores of one side by row-block (W, W) correlation matmuls
+    and a banded gather: ``scores[h, u, d] = corr[h, u, clip(v)]`` with
+    ``corr[h, u, v] = <anchor(h, u), other(h, v)>`` and ``v = u - d``
+    (left) or ``v = u + d`` (right). The caller masks the clipped entries.
     """
     height, width, _ = anchor.shape
     device = anchor.device
     cols = torch.arange(width, device=device)[:, None]
     disps = torch.arange(d_pad, device=device)[None, :]
     src = cols - disps if side == "left" else cols + disps  # (W, D)
-    valid = (src >= 0) & (src < width)
     index = src.clamp(0, width - 1)
-    real = disps < ndisp
     a = anchor.float()
     o = other.float()
-    out = torch.empty((height, width, d_pad), dtype=dtype, device=device)
+    scores = torch.empty((height, width, d_pad), dtype=torch.float32,
+                         device=device)
     for h0 in range(0, height, row_chunk):
         h1 = min(h0 + row_chunk, height)
         corr = torch.bmm(a[h0:h1], o[h0:h1].transpose(1, 2))
-        band = torch.gather(corr, 2, index.expand(h1 - h0, width, d_pad))
-        cost = torch.where(valid, -band, 0.0)
-        out[h0:h1] = torch.where(real, cost, BIG_COST).to(dtype)
-    return out
+        scores[h0:h1] = torch.gather(
+            corr, 2, index.expand(h1 - h0, width, d_pad))
+    return scores
+
+
+def band_side_plain(anchor: torch.Tensor, other: torch.Tensor, ndisp: int,
+                    d_pad: int, side: str, dtype: torch.dtype) -> torch.Tensor:
+    """Finalized band of one side: the negated scores, 0 where the match
+    falls outside the image and ``BIG_COST`` on the pad lanes."""
+    width = anchor.shape[1]
+    cols = torch.arange(width, device=anchor.device)[:, None]
+    disps = torch.arange(d_pad, device=anchor.device)[None, :]
+    valid = cols >= disps if side == "left" else cols + disps < width
+    scores = _scores_matmul(anchor, other, d_pad, side)
+    cost = torch.where(valid, -scores, 0.0)
+    return torch.where(disps < ndisp, cost, BIG_COST).to(dtype)
 
 
 def band_side(anchor: torch.Tensor, other: torch.Tensor, ndisp: int,
@@ -90,33 +107,146 @@ def band_side(anchor: torch.Tensor, other: torch.Tensor, ndisp: int,
     return out
 
 
+def band_pair_plain(features_left: torch.Tensor,
+                    features_right: torch.Tensor, ndisp: int, d_pad: int,
+                    dtype: torch.dtype):
+    """Both finalized bands, (left, right), by the plain one-side version."""
+    return (
+        band_side_plain(features_left, features_right, ndisp, d_pad, "left",
+                        dtype),
+        band_side_plain(features_right, features_left, ndisp, d_pad, "right",
+                        dtype),
+    )
+
+
+def band_pair(features_left: torch.Tensor, features_right: torch.Tensor,
+              ndisp: int, d_pad: int, dtype: torch.dtype):
+    """K5 wrapper: one launch writes both bands on CUDA; ``band_pair_plain``
+    on the CPU. Returns (left, right)."""
+    if features_left.device.type == "cpu":
+        return band_pair_plain(features_left, features_right, ndisp, d_pad,
+                               dtype)
+    require_cuda("left features", features_left, (dtype,))
+    require_cuda("right features", features_right, (dtype,))
+    if dtype not in _STORAGE:
+        raise ValueError(f"unsupported volume dtype {dtype}")
+    height, width, channels = features_left.shape
+    if (features_right.shape != features_left.shape or channels != 64
+            or d_pad % 128):
+        raise ValueError(
+            f"band kernel takes two (H, W, 64) fields and D_pad % 128 == 0; "
+            f"got {tuple(features_left.shape)}, "
+            f"{tuple(features_right.shape)}, D_pad {d_pad}"
+        )
+    left = torch.empty((height, width, d_pad), dtype=dtype,
+                       device=features_left.device)
+    right = torch.empty_like(left)
+    code = library().mccnn_band_pair(
+        features_left.data_ptr(), features_right.data_ptr(), left.data_ptr(),
+        right.data_ptr(), height, width, channels, d_pad, ndisp,
+        int(dtype == torch.bfloat16), stream_handle(features_left),
+    )
+    check(code, "band_pair")
+    LAUNCHES.add("band_pair")
+    return left, right
+
+
+def _left_scores_rolldot(features_left: torch.Tensor,
+                         features_right: torch.Tensor,
+                         d_pad: int) -> torch.Tensor:
+    """Scores <fL(h, w), fR(h, w - d)> by per-disparity shifted dot products
+    (exact f32; columns w < d wrap and are masked by the caller)."""
+    height, width, _ = features_left.shape
+    left = features_left.float()
+    right = features_right.float()
+    volume = torch.zeros((height, width, d_pad), dtype=torch.float32,
+                         device=left.device)
+    for d in range(d_pad):
+        shifted = torch.roll(right, d, dims=1)
+        volume[:, :, d] = torch.sum(left * shifted, dim=-1)
+    return volume
+
+
+def _right_from_left(scores_left: torch.Tensor, ndisp: int) -> torch.Tensor:
+    """rcv[h, w, d] = lcv[h, w + d, d] for w + d < W and d < ndisp, else 0
+    (the dot product is symmetric: the right band is a shift of the left)."""
+    height, width, d_pad = scores_left.shape
+    device = scores_left.device
+    cols = torch.arange(width, device=device)[:, None]
+    disps = torch.arange(d_pad, device=device)[None, :]
+    src = (cols + disps).clamp(0, width - 1)  # (W, D)
+    gathered = torch.gather(scores_left, 1,
+                            src.expand(height, width, d_pad))
+    valid = (cols + disps < width) & (disps < ndisp)
+    return torch.where(valid, gathered, 0.0)
+
+
+def _cost_volume_pair_xla(features_left, features_right, ndisp, sides, dtype,
+                          method):
+    """The JAX package's XLA paths: scores, then fills, then negation."""
+    width = features_left.shape[1]
+    d_pad = pad_disparities(ndisp)
+    device = features_left.device
+    if method == "matmul":
+        scores_left = _scores_matmul(features_left, features_right, d_pad,
+                                     "left")
+    else:
+        scores_left = _left_scores_rolldot(features_left, features_right,
+                                           d_pad)
+    cols = torch.arange(width, device=device)[:, None]
+    disps = torch.arange(d_pad, device=device)[None, :]
+    real = disps < ndisp
+    # zero the w < d band and the disparity padding before the fills
+    scores_left = torch.where((cols >= disps) & real, scores_left,
+                              0.0).to(dtype)
+    big = torch.tensor(BIG_COST, dtype=dtype, device=device)
+    out = []
+    if sides != "left":
+        scores_right = _right_from_left(scores_left, ndisp)
+    if sides != "right":
+        scores_left = _border_fill_left(scores_left, ndisp)
+        out.append(torch.where(real, -scores_left, big))
+    if sides != "left":
+        scores_right = _border_fill_right(scores_right, ndisp)
+        out.append(torch.where(real, -scores_right, big))
+    return tuple(out) if sides == "both" else out[0]
+
+
 def cost_volume_pair(features_left: torch.Tensor,
                      features_right: torch.Tensor, ndisp: int,
-                     sides: str = "both", dtype: torch.dtype = torch.float32):
+                     sides: str = "both", dtype: torch.dtype = torch.float32,
+                     method: str = "auto"):
     """Border-filled, BIG_COST-padded cost volume(s), (H, W, D_pad).
 
     ``sides`` is "left", "right" or "both" (a (left, right) tuple).
+    ``method`` "auto" or "pallas" runs the band kernels (K1 for one side,
+    K5 for both; their plain versions on the CPU); "matmul" and "rolldot"
+    are torch-op paths on any device.
     """
     width = features_left.shape[1]
     if ndisp > width:
         raise ValueError(f"ndisp ({ndisp}) must be <= image width ({width})")
-    if sides == "both":
-        return (
-            cost_volume_pair(features_left, features_right, ndisp, "left",
-                             dtype),
-            cost_volume_pair(features_left, features_right, ndisp, "right",
-                             dtype),
-        )
+    if sides not in ("left", "right", "both"):
+        raise ValueError(
+            f"sides must be 'left', 'right' or 'both', got {sides!r}")
+    if method in ("matmul", "rolldot"):
+        return _cost_volume_pair_xla(features_left, features_right, ndisp,
+                                     sides, dtype, method)
+    if method not in ("auto", "pallas"):
+        raise ValueError(f"unknown cost-volume method: {method}")
     d_pad = pad_disparities(ndisp)
+    if sides == "both":
+        left, right = band_pair(features_left, features_right, ndisp, d_pad,
+                                dtype)
+        return (_border_fill_left(left, ndisp),
+                _border_fill_right(right, ndisp))
     if sides == "left":
         volume = band_side(features_left, features_right, ndisp, d_pad,
                            "left", dtype)
         return _border_fill_left(volume, ndisp)
-    if sides == "right":
-        volume = band_side(features_right, features_left, ndisp, d_pad,
-                           "right", dtype)
-        return _border_fill_right(volume, ndisp)
-    raise ValueError(f"sides must be 'left', 'right' or 'both', got {sides!r}")
+    volume = band_side(features_right, features_left, ndisp, d_pad, "right",
+                       dtype)
+    return _border_fill_right(volume, ndisp)
 
 
 def _fill_mean(cols: torch.Tensor, count: int, dtype: torch.dtype):

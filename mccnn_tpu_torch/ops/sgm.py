@@ -39,7 +39,7 @@ from mccnn_tpu_torch.kernels.build import (
     stream_handle,
 )
 from mccnn_tpu_torch.ops.common import BIG_COST
-from mccnn_tpu_torch.shared import MatchConfig
+from mccnn_tpu_torch.utils.config import MatchConfig
 
 # sweep order matters in the chained mode: right, left, up, down
 _DIRECTIONS = ((0, 1), (0, -1), (-1, 0), (1, 0))

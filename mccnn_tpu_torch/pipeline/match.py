@@ -1,14 +1,21 @@
 """The matching pipeline on PyTorch (mccnn_tpu/pipeline/match.py).
 
 features -> cost volume -> CBCA (iters_1) -> SGM -> CBCA (iters_2) -> WTA
--> LR-consistency interpolation -> subpixel -> 5x5 median -> 5x5 bilateral,
-one volume at a time, right volume first (the right volume reduces to its
+-> LR-consistency interpolation -> subpixel -> 5x5 median -> 5x5 bilateral.
+With the band kernels (``cost_volume_method`` "auto" or "pallas") one volume
+is built and processed at a time, right volume first (it reduces to its
 disparity map before the left one, which lives on through subpixel, is
-built): peak memory is one volume plus the CBCA scratch.
+built): peak memory is one volume plus the CBCA buffers. With "matmul" or
+"rolldot" both volumes are built at once and the left is processed first, as
+the JAX package does. ``MatchPipeline.stage_times`` runs the same stages as
+ten separately timed steps with both volumes live.
 
 On a CUDA device the cost volume, CBCA rounds and SGM sweeps run the
-port's kernels K1-K3 (``csrc/``); on the CPU they run their plain
-versions. Nothing selects the plain versions for a CUDA tensor.
+port's kernels (``csrc/``): K1 (one band side) or K5 (both sides, in
+``stage_times``), K2 (``cbca_impl`` "auto", "fused", "xla"), K7 ("pallas":
+exact f32, single pass), K4 ("fused8": int8 storage) and K3; on the CPU
+they run their plain versions. Nothing selects the plain versions for a
+CUDA tensor.
 
 f32 convolutions and matrix products must not run in TF32 on the card
 (cuDNN allows it by default), so ``match_pair`` switches TF32 off for
@@ -16,6 +23,9 @@ cuDNN and cuBLAS before it runs.
 """
 
 from __future__ import annotations
+
+import functools
+import time
 
 import numpy as np
 import torch
@@ -27,94 +37,190 @@ from mccnn_tpu_torch.models.net import (
 )
 from mccnn_tpu_torch.ops.cbca import compute_arms
 from mccnn_tpu_torch.ops.cbca_fused import cbca_fused
+from mccnn_tpu_torch.ops.cbca_pallas import cbca_pallas
 from mccnn_tpu_torch.ops.cost_volume import cost_volume_pair
 from mccnn_tpu_torch.ops.filters import bilateral_filter, median_filter
 from mccnn_tpu_torch.ops.lr_check import lr_consistency_interpolate
 from mccnn_tpu_torch.ops.sgm import _sgm_one_volume
 from mccnn_tpu_torch.ops.subpixel import subpixel_enhance
 from mccnn_tpu_torch.ops.wta import wta_disparity
-from mccnn_tpu_torch.shared import MatchConfig
+from mccnn_tpu_torch.utils.config import MatchConfig
 
 _VOLUME_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# JAX's CBCA names that this port accepts; all run ``cbca_fused`` (below)
-_CBCA_IMPLS = ("auto", "fused", "xla")
+# the JAX package's CBCA names that this port runs: "auto", "fused" and
+# "xla" aggregate with K2, "pallas" with K7, "fused8" with K4
+_CBCA_IMPLS = ("auto", "fused", "xla", "pallas", "fused8")
+_COST_VOLUME_METHODS = ("auto", "pallas", "matmul", "rolldot")
+STAGES = ("features", "cost_volume", "cbca_1", "sgm", "cbca_2", "wta",
+          "lr_interpolation", "subpixel", "median", "bilateral")
 
 
 def _check_options(config: MatchConfig, volume_dtype: str, cbca_impl: str,
-                   cbca_chunk_d: int = 0) -> None:
+                   cost_volume_method: str = "auto") -> None:
     """Raise for the JAX pipeline's options this port does not run yet."""
-    if cbca_chunk_d:
-        raise ValueError("cbca_chunk_d is not ported yet")
     if volume_dtype not in _VOLUME_DTYPES:
         raise ValueError(f"volume_dtype must be one of {tuple(_VOLUME_DTYPES)}")
     if cbca_impl not in _CBCA_IMPLS:
         raise ValueError(
             f"cbca_impl {cbca_impl!r} is not ported; use one of {_CBCA_IMPLS}")
+    if cbca_impl == "pallas" and volume_dtype != "float32":
+        raise ValueError("cbca_impl 'pallas' takes float32 volumes only")
+    if cost_volume_method not in _COST_VOLUME_METHODS:
+        raise ValueError(
+            f"unknown cost-volume method: {cost_volume_method!r}; use one of "
+            f"{_COST_VOLUME_METHODS}")
     if config.cbca_joint_regions:
         raise ValueError("cbca_joint_regions is not ported yet")
     if config.sgm_u8:
         raise ValueError("sgm_u8 is not ported yet")
 
 
+def _cbca_aggregate(cbca_impl: str):
+    """A CBCA impl name -> ``fn(volume, arms, iterations, distance)``."""
+    if cbca_impl == "pallas":
+        return cbca_pallas
+    if cbca_impl == "fused8":
+        return functools.partial(cbca_fused, int8_storage=True)
+    return cbca_fused
+
+
+def _run_cbca(aggregate, volume: torch.Tensor, arms, iterations: int,
+              distance: int, cbca_chunk_d: int) -> torch.Tensor:
+    """Aggregate the whole volume, or slices of its disparity axis in turn.
+
+    Aggregation is independent per disparity, so chunking caps the round
+    buffers at the chunk size. A slice of the last axis is not contiguous
+    and the kernels want contiguous operands, so each chunk is copied out,
+    aggregated and written back into ``volume`` in place. With "fused8"
+    every chunk call quantizes by its own scale, as in the JAX package.
+    """
+    d_pad = volume.shape[2]
+    if not cbca_chunk_d or d_pad <= cbca_chunk_d:
+        return aggregate(volume, arms, iterations, distance)
+    if d_pad % cbca_chunk_d:
+        raise ValueError("cbca_chunk_d must divide the padded depth")
+    for start in range(0, d_pad, cbca_chunk_d):
+        block = volume[:, :, start:start + cbca_chunk_d].contiguous()
+        volume[:, :, start:start + cbca_chunk_d] = aggregate(
+            block, arms, iterations, distance)
+    return volume
+
+
+def _disable_tf32() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _post_stages(ndisp: int, config: MatchConfig):
+    """The four post-WTA stages as (name, fn(state) -> state) steps.
+
+    The state holds ``left`` (the image), ``left_disparity``,
+    ``right_disparity`` and ``left_volume``; each step drops what no later
+    step reads and leaves its result under ``disparity``.
+    """
+
+    def lr_interpolation(s):
+        s["disparity"] = lr_consistency_interpolate(
+            s.pop("left_disparity"), s.pop("right_disparity"), ndisp)
+        return s
+
+    def subpixel(s):
+        s["disparity"] = subpixel_enhance(s["disparity"],
+                                          s.pop("left_volume"), ndisp)
+        return s
+
+    def median(s):
+        s["disparity"] = median_filter(
+            s["disparity"], config.median_filter_size,
+            config.median_filter_size)
+        return s
+
+    def bilateral(s):
+        s["disparity"] = bilateral_filter(
+            s["left"], s["disparity"], config.bilateral_filter_size,
+            config.bilateral_filter_size, 0.0, config.blur_sigma,
+            config.blur_threshold)
+        return s
+
+    return list(zip(STAGES[6:], (lr_interpolation, subpixel, median,
+                                 bilateral)))
+
+
 def match_pair(net: FeatureNet, left_image: torch.Tensor,
                right_image: torch.Tensor, ndisp: int,
                config: MatchConfig = MatchConfig(),
                volume_dtype: str = "float32", cbca_impl: str = "auto",
-               return_volumes: bool = False, cbca_chunk_d: int = 0):
+               return_volumes: bool = False, cbca_chunk_d: int = 0,
+               cost_volume_method: str = "auto"):
     """(H, W) standardized image pair -> (H, W) float32 disparity map.
 
     ``volume_dtype`` "bfloat16" stores the volumes in bf16 (the descriptors
-    are cast to bf16 for the correlation; DP and aggregation math stay
-    f32). Every accepted ``cbca_impl`` ("auto", "fused", "xla") aggregates
-    with ``cbca_fused``: K2 on CUDA, the plain round on the CPU. K2 sums in
-    f32 like JAX's exact "xla" path, so the port has one CBCA
-    implementation per device. ``return_volumes=True`` returns a
-    dict with the disparity, the processed pre-WTA volumes and the per-side
-    WTA maps.
+    are cast to bf16 for the band kernels; DP and aggregation math stay
+    f32). ``cbca_impl`` "auto", "fused" and "xla" aggregate with
+    ``cbca_fused`` (K2 on CUDA, which sums in f32 like JAX's exact "xla"
+    path), "pallas" with ``cbca_pallas`` (K7, f32 volumes only) and
+    "fused8" with int8 storage (K4); on the CPU each runs its plain
+    version. ``cbca_chunk_d`` aggregates the disparity axis in chunks of
+    that many lanes. ``cost_volume_method`` "auto" and "pallas" build one
+    volume at a time with K1, right first; "matmul" and "rolldot" build both
+    with torch ops and process the left first. ``return_volumes=True``
+    returns a dict with the disparity, the processed pre-WTA volumes and
+    the per-side WTA maps.
     """
-    _check_options(config, volume_dtype, cbca_impl, cbca_chunk_d)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _check_options(config, volume_dtype, cbca_impl, cost_volume_method)
+    _disable_tf32()
     vdtype = _VOLUME_DTYPES[volume_dtype]
     distance = int(config.cbca_distance)
+    aggregate = _cbca_aggregate(cbca_impl)
+    band_kernels = cost_volume_method in ("auto", "pallas")
 
     with torch.no_grad():
         features_left = extract_features(net, left_image)
         features_right = extract_features(net, right_image)
-        if vdtype == torch.bfloat16:
+        if band_kernels and vdtype == torch.bfloat16:
             features_left = features_left.to(torch.bfloat16)
             features_right = features_right.to(torch.bfloat16)
 
-        def process(side: str, image: torch.Tensor) -> torch.Tensor:
-            """cost volume -> CBCA -> SGM -> CBCA for one side."""
-            volume = cost_volume_pair(features_left, features_right, ndisp,
-                                      sides=side, dtype=vdtype)
+        def process(volume: torch.Tensor, image: torch.Tensor,
+                    choice: str) -> torch.Tensor:
+            """CBCA -> SGM -> CBCA for one volume."""
             arms = compute_arms(image, config.cbca_intensity, distance)
-            volume = cbca_fused(volume, arms, config.cbca_num_iterations_1,
-                                distance)
-            volume = _sgm_one_volume(volume, left_image, right_image,
-                                     "L" if side == "left" else "R", ndisp,
-                                     config)
-            return cbca_fused(volume, arms, config.cbca_num_iterations_2,
-                              distance)
+            volume = _run_cbca(aggregate, volume, arms,
+                               config.cbca_num_iterations_1, distance,
+                               cbca_chunk_d)
+            volume = _sgm_one_volume(volume, left_image, right_image, choice,
+                                     ndisp, config)
+            return _run_cbca(aggregate, volume, arms,
+                             config.cbca_num_iterations_2, distance,
+                             cbca_chunk_d)
 
-        right_volume = process("right", right_image)
-        right_disparity = wta_disparity(right_volume)
-        if not return_volumes:
-            del right_volume  # free it before the left volume is built
-        left_volume = process("left", left_image)
-        left_disparity = wta_disparity(left_volume)
+        if band_kernels:
+            right_volume = process(
+                cost_volume_pair(features_left, features_right, ndisp,
+                                 sides="right", dtype=vdtype), right_image,
+                "R")
+            right_disparity = wta_disparity(right_volume)
+            if not return_volumes:
+                del right_volume  # free it before the left volume is built
+            left_volume = process(
+                cost_volume_pair(features_left, features_right, ndisp,
+                                 sides="left", dtype=vdtype), left_image, "L")
+            left_disparity = wta_disparity(left_volume)
+        else:
+            left_volume, right_volume = cost_volume_pair(
+                features_left, features_right, ndisp, dtype=vdtype,
+                method=cost_volume_method)
+            left_volume = process(left_volume, left_image, "L")
+            right_volume = process(right_volume, right_image, "R")
+            left_disparity = wta_disparity(left_volume)
+            right_disparity = wta_disparity(right_volume)
 
-        disparity = lr_consistency_interpolate(left_disparity,
-                                               right_disparity, ndisp)
-        disparity = subpixel_enhance(disparity, left_volume, ndisp)
-        disparity = median_filter(disparity, config.median_filter_size,
-                                  config.median_filter_size)
-        disparity = bilateral_filter(
-            left_image, disparity, config.bilateral_filter_size,
-            config.bilateral_filter_size, 0.0, config.blur_sigma,
-            config.blur_threshold,
-        )
+        state = {"left": left_image, "left_volume": left_volume,
+                 "left_disparity": left_disparity,
+                 "right_disparity": right_disparity}
+        for _, stage in _post_stages(ndisp, config):
+            state = stage(state)
+        disparity = state["disparity"]
     if return_volumes:
         return {
             "disparity": disparity,
@@ -124,6 +230,61 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
             "right_disparity": right_disparity,
         }
     return disparity
+
+
+def _build_staged(net: FeatureNet, config: MatchConfig, ndisp: int,
+                  cost_volume_method: str, cbca_impl: str, volume_dtype: str,
+                  cbca_chunk_d: int):
+    """The pipeline as ten (name, fn(state) -> state) steps, in ``STAGES``
+    order, for ``MatchPipeline.stage_times``.
+
+    The same operations as ``match_pair``, but both volumes are built in
+    one step (kernel K5 with the band methods) and stay live side by side.
+    """
+    vdtype = _VOLUME_DTYPES[volume_dtype]
+    distance = int(config.cbca_distance)
+    aggregate = _cbca_aggregate(cbca_impl)
+    band_kernels = cost_volume_method in ("auto", "pallas")
+
+    def features(s):
+        s["features_left"] = extract_features(net, s["left"])
+        s["features_right"] = extract_features(net, s["right"])
+        return s
+
+    def cost_volume(s):
+        fl, fr = s.pop("features_left"), s.pop("features_right")
+        if band_kernels and vdtype == torch.bfloat16:
+            fl, fr = fl.to(torch.bfloat16), fr.to(torch.bfloat16)
+        s["left_volume"], s["right_volume"] = cost_volume_pair(
+            fl, fr, ndisp, dtype=vdtype, method=cost_volume_method)
+        return s
+
+    def make_cbca(iterations):
+        def stage(s):
+            for side in ("left", "right"):
+                arms = compute_arms(s[side], config.cbca_intensity, distance)
+                s[f"{side}_volume"] = _run_cbca(
+                    aggregate, s[f"{side}_volume"], arms, iterations,
+                    distance, cbca_chunk_d)
+            return s
+
+        return stage
+
+    def sgm_stage(s):
+        for side, choice in (("left", "L"), ("right", "R")):
+            s[f"{side}_volume"] = _sgm_one_volume(
+                s[f"{side}_volume"], s["left"], s["right"], choice, ndisp,
+                config)
+        return s
+
+    def wta(s):
+        s["left_disparity"] = wta_disparity(s["left_volume"])
+        s["right_disparity"] = wta_disparity(s.pop("right_volume"))
+        return s
+
+    stages = [features, cost_volume, make_cbca(config.cbca_num_iterations_1),
+              sgm_stage, make_cbca(config.cbca_num_iterations_2), wta]
+    return list(zip(STAGES, stages)) + _post_stages(ndisp, config)
 
 
 def standardize_image(image: np.ndarray) -> np.ndarray:
@@ -144,8 +305,8 @@ class MatchPipeline:
     def __init__(self, params, config: MatchConfig = MatchConfig(),
                  bucket: int = 64, volume_dtype: str = "float32",
                  cbca_impl: str = "auto", cbca_chunk_d: int = 0,
-                 device: str = "cuda"):
-        _check_options(config, volume_dtype, cbca_impl, cbca_chunk_d)
+                 device: str = "cuda", cost_volume_method: str = "auto"):
+        _check_options(config, volume_dtype, cbca_impl, cost_volume_method)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is "
@@ -157,6 +318,8 @@ class MatchPipeline:
         self.bucket = bucket
         self.volume_dtype = volume_dtype
         self.cbca_impl = cbca_impl
+        self.cbca_chunk_d = cbca_chunk_d
+        self.cost_volume_method = cost_volume_method
 
     def _bucketed(self, size: int) -> int:
         return -(-size // self.bucket) * self.bucket
@@ -168,6 +331,18 @@ class MatchPipeline:
         Pair with ``fetch``: the serve loop dispatches scene N, then writes
         scene N-1's artifacts while N runs on the card.
         """
+        left, right = self._padded_on_device(left_image, right_image)
+        out = match_pair(
+            self.net, left, right, ndisp, self.config,
+            volume_dtype=self.volume_dtype, cbca_impl=self.cbca_impl,
+            cbca_chunk_d=self.cbca_chunk_d,
+            cost_volume_method=self.cost_volume_method,
+        )
+        return out, left_image.shape
+
+    def _padded_on_device(self, left_image: np.ndarray,
+                          right_image: np.ndarray):
+        """Edge-pad the pair up to the bucket and copy it to the device."""
         height, width = left_image.shape
         pad_h = self._bucketed(height) - height
         pad_w = self._bucketed(width) - width
@@ -175,12 +350,7 @@ class MatchPipeline:
             pad = ((0, pad_h), (0, pad_w))
             left_image = np.pad(left_image, pad, mode="edge")
             right_image = np.pad(right_image, pad, mode="edge")
-        out = match_pair(
-            self.net, self._to_device(left_image),
-            self._to_device(right_image), ndisp, self.config,
-            volume_dtype=self.volume_dtype, cbca_impl=self.cbca_impl,
-        )
-        return out, (height, width)
+        return self._to_device(left_image), self._to_device(right_image)
 
     def _to_device(self, image: np.ndarray) -> torch.Tensor:
         """Host image -> device tensor without waiting for the device.
@@ -204,5 +374,34 @@ class MatchPipeline:
         """Standardized (H, W) pair -> (H, W) disparity (host arrays)."""
         return self.fetch(self.dispatch(left_image, right_image, ndisp))
 
-    def stage_times(self, *args, **kwargs):
-        raise ValueError("stage_times is not ported yet")
+    def stage_times(self, left_image: np.ndarray, right_image: np.ndarray,
+                    ndisp: int):
+        """Observability mode (cli/match.py --stage_times): the pipeline as
+        ten steps with a device sync after each; returns ``(disparity,
+        {stage: seconds})``.
+
+        Real data flows from stage to stage, but both volumes are live at
+        once (built by one K5 launch with the band methods): it needs about
+        twice ``__call__``'s memory.
+        """
+        _disable_tf32()
+        height, width = left_image.shape
+        left, right = self._padded_on_device(left_image, right_image)
+        stages = _build_staged(
+            self.net, self.config, ndisp, self.cost_volume_method,
+            self.cbca_impl, self.volume_dtype, self.cbca_chunk_d)
+        state = {"left": left, "right": right}
+        times = {}
+        with torch.no_grad():
+            for name, stage in stages:
+                self._sync()
+                t0 = time.perf_counter()
+                state = stage(state)
+                self._sync()
+                times[name] = time.perf_counter() - t0
+        disparity = state["disparity"].cpu().numpy()[:height, :width]
+        return disparity, times
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

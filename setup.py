@@ -17,6 +17,7 @@ setup(
         "console_scripts": [
             "mccnn-train=mccnn_tpu.cli.train:main",
             "mccnn-match=mccnn_tpu.cli.match:main",
+            "mccnn-match-torch=mccnn_tpu_torch.cli.match:main",
         ]
     },
 )

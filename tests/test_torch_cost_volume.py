@@ -124,3 +124,48 @@ def test_rejects_bad_arguments(rng):
         _port(fl, fr, 9, "left", torch.float32)  # ndisp > width
     with pytest.raises(ValueError):
         _port(fl, fr, 4, "up", torch.float32)
+
+
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+@pytest.mark.parametrize("method", ["matmul", "rolldot", "pallas"])
+def test_both_sides_match_jax_method_by_method(rng, method, dtype):
+    """``sides="both"`` (K5's plain version for the band methods) and the
+    torch-op ``matmul`` / ``rolldot`` paths against JAX with the same
+    method; JAX runs the both-sides Pallas kernel in interpret mode."""
+    ndisp = 12
+    fl, fr = _features(rng)
+    tdtype, jdtype = _DTYPES[dtype]
+    tl, tr = torch.from_numpy(fl), torch.from_numpy(fr)
+    if method == "pallas" and dtype == "bfloat16":
+        tl, tr = tl.to(tdtype), tr.to(tdtype)  # the band kernels' operands
+    got = tcv.cost_volume_pair(tl, tr, ndisp, dtype=tdtype, method=method)
+    want = jax_cvp(jnp.asarray(fl), jnp.asarray(fr), ndisp, method=method,
+                   dtype=jdtype)
+    atol = F32_ATOL if dtype == "float32" else BF16_ATOL
+    for side, g, w in zip(("left", "right"), got, want):
+        g, w = _np(g), _np(w)
+        assert g.shape == w.shape == (6, 40, 128), side
+        np.testing.assert_allclose(g[..., :ndisp], w[..., :ndisp], atol=atol)
+        np.testing.assert_array_equal(g[..., ndisp:], w[..., ndisp:])
+    # each side alone is the same volume
+    for side, both in zip(("left", "right"), got):
+        alone = tcv.cost_volume_pair(tl, tr, ndisp, sides=side, dtype=tdtype,
+                                     method=method)
+        torch.testing.assert_close(alone, both, rtol=0, atol=0)
+
+
+def test_band_pair_plain_is_two_band_sides(rng):
+    fl, fr = (torch.from_numpy(f) for f in _features(rng, 4, 30))
+    left, right = tcv.band_pair(fl, fr, 9, 128, torch.float32)  # CPU: plain
+    torch.testing.assert_close(
+        left, tcv.band_side_plain(fl, fr, 9, 128, "left", torch.float32),
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        right, tcv.band_side_plain(fr, fl, 9, 128, "right", torch.float32),
+        rtol=0, atol=0)
+
+
+def test_unknown_method_raises(rng):
+    fl, fr = (torch.from_numpy(f) for f in _features(rng, 2, 8))
+    with pytest.raises(ValueError, match="method"):
+        tcv.cost_volume_pair(fl, fr, 4, method="scan")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K3 against their plain versions.
+"""The port's CUDA kernels K1-K5 and K7 against their plain versions.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX (there, without the JAX-importing conftest):
@@ -21,7 +21,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from mccnn_tpu.utils.config import MatchConfig  # noqa: E402
 from mccnn_tpu_torch.kernels import build  # noqa: E402
 from mccnn_tpu_torch.models.net import (  # noqa: E402
     init_params,
@@ -31,11 +30,22 @@ from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops import cost_volume as tcv  # noqa: E402
 from mccnn_tpu_torch.ops import sgm as tsgm  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_fused import (  # noqa: E402
+    _quantize_int8,
     cbca_fused,
+    cbca_int8_plain,
     cbca_round_cuda,
+    cbca_round_int8_cuda,
+)
+from mccnn_tpu_torch.ops.cbca_pallas import (  # noqa: E402
+    cbca_pallas,
+    cbca_stencil_round_cuda,
 )
 from mccnn_tpu_torch.ops.common import BIG_COST  # noqa: E402
-from mccnn_tpu_torch.pipeline.match import match_pair  # noqa: E402
+from mccnn_tpu_torch.pipeline.match import (  # noqa: E402
+    MatchPipeline,
+    match_pair,
+)
+from mccnn_tpu_torch.utils.config import MatchConfig  # noqa: E402
 
 from torch_parity import require_card, scene_pair, unit_features  # noqa: E402
 
@@ -67,6 +77,16 @@ def test_cpu_tensors_take_the_plain_versions():
     agg = cbca_fused(band, arms, 2, DIST)
     torch.testing.assert_close(agg, tcbca.cbca(band, arms, 2, DIST), rtol=0,
                                atol=0)
+    torch.testing.assert_close(cbca_pallas(band, arms, 2, DIST), agg, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(
+        cbca_fused(band, arms, 2, DIST, int8_storage=True),
+        cbca_int8_plain(band, arms, 2, DIST), rtol=0, atol=0)
+    both = tcv.band_pair(fl, fr, NDISP, 128, torch.float32)
+    torch.testing.assert_close(both[0], band, rtol=0, atol=0)
+    torch.testing.assert_close(
+        both[1], tcv.band_side_plain(fr, fl, NDISP, 128, "right",
+                                     torch.float32), rtol=0, atol=0)
     out = torch.empty_like(agg)
     tsgm.sweep(agg, out, left, right, "L", (0, 1), MatchConfig())
     want = torch.empty_like(agg)
@@ -85,6 +105,16 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         cbca_round_cuda(vol, torch.empty_like(vol), vol, arms, inv, DIST)
     with pytest.raises(ValueError, match="CUDA"):
         tsgm.sweep_cuda(vol, vol, left, right, "L", (1, 0), MatchConfig())
+    with pytest.raises(ValueError, match="CUDA"):
+        cbca_stencil_round_cuda(vol, torch.empty_like(vol), arms, inv, DIST)
+    q = vol.to(torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        cbca_round_int8_cuda(q, torch.empty_like(q), arms, inv, DIST)
+
+
+def _launched():
+    """The kernels launched since the last reset, with their counts."""
+    return {k: v for k, v in build.LAUNCHES.snapshot().items() if v}
 
 
 def _on_cpu(*tensors):
@@ -100,7 +130,8 @@ def test_library_name_follows_the_sources():
     assert path.name.startswith("libmccnn_kernels_")
     assert path == build.library_path()  # stable for unchanged sources
     assert {p.name for p in build.SOURCE_DIR.glob("*.cu")} == {
-        "band.cu", "cbca_round.cu", "sgm_sweep.cu"}
+        "band.cu", "band_pair.cu", "cbca_round.cu", "cbca_round_int8.cu",
+        "cbca_stencil.cu", "sgm_sweep.cu"}
 
 
 @pytest.mark.cuda
@@ -207,7 +238,151 @@ def test_kernel_path_matches_plain_path(volume_dtype):
         build.LAUNCHES.reset()
         got = match_pair(net, left, right, 40, volume_dtype=volume_dtype,
                          cbca_impl=cbca_impl)
-        assert build.LAUNCHES.snapshot() == per_pair
+        assert _launched() == per_pair
         # cuDNN and CPU convolutions round apart, so a few WTA ties flip
         off = (got.cpu() - want).abs().gt(1.0).float().mean().item()
         assert off <= 0.005
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(9, 150, 70), (3, 33, 20), (5, 420, 300)])
+def test_band_pair_kernel_equals_two_band_side_launches(shape, dtype):
+    """K5 against K1 twice (bit-equal) and against its plain version."""
+    device = require_card()
+    height, width, ndisp = shape
+    d_pad = -(-ndisp // 128) * 128
+    rng = np.random.default_rng(7)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width)).to(device,
+                                                                    dtype)
+              for _ in "lr")
+    build.LAUNCHES.reset()
+    left, right = tcv.band_pair(fl, fr, ndisp, d_pad, dtype)
+    assert build.LAUNCHES.snapshot()["band_pair"] == 1
+    assert build.LAUNCHES.snapshot()["band_side"] == 0
+    # the same f32 accumulation order as K1: bit-equal
+    torch.testing.assert_close(
+        left, tcv.band_side(fl, fr, ndisp, d_pad, "left", dtype), rtol=0,
+        atol=0)
+    torch.testing.assert_close(
+        right, tcv.band_side(fr, fl, ndisp, d_pad, "right", dtype), rtol=0,
+        atol=0)
+    want = tcv.band_pair_plain(fl, fr, ndisp, d_pad, dtype)
+    # |cost| <= 1: f32 sums in another order; bf16 one ulp (2^-8) apart
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    for got, plain in zip((left, right), want):
+        torch.testing.assert_close(got.float(), plain.float(), atol=atol,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(70, 150, 256, 200), (48, 64, 128, 16),
+                                   (1, 1, 128, 1), (33, 5, 8, 8)])
+def test_cbca_stencil_kernel_matches_plain(shape):
+    """K7 against the plain f32 round and against K2: all bit-equal."""
+    device = require_card()
+    height, width, d_pad, ndisp = shape
+    left, _ = _images(max(height, 48), max(width, 64))
+    arms = tcbca.compute_arms(left[:height, :width].to(device), TAU, DIST)
+    vol = _volume(np.random.default_rng(8), height, width, d_pad,
+                  ndisp).to(device)
+    keep = vol.clone()
+    build.LAUNCHES.reset()
+    got = cbca_pallas(vol, arms, 3, DIST)
+    assert build.LAUNCHES.snapshot()["cbca_stencil_round"] == 3
+    torch.testing.assert_close(vol, keep, rtol=0, atol=0)  # input untouched
+    torch.testing.assert_close(got, tcbca.cbca(vol, arms, 3, DIST), rtol=0,
+                               atol=0)
+    if d_pad % 128 == 0:
+        torch.testing.assert_close(got, cbca_fused(vol, arms, 3, DIST),
+                                   rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        cbca_pallas(vol.to(torch.bfloat16), arms, 1, DIST)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("shape", [(70, 150, 256, 200), (48, 64, 128, 16),
+                                   (1, 1, 32, 1)])
+def test_cbca_int8_kernel_matches_plain(shape, dtype):
+    """K4 against ``cbca_int8_plain``: exact integer math, bit-equal, in
+    the float modes and the pre-quantized raw mode; BIG lanes stay 127."""
+    device = require_card()
+    height, width, d_pad, ndisp = shape
+    left, _ = _images(max(height, 48), max(width, 64))
+    arms = tcbca.compute_arms(left[:height, :width].to(device), TAU, DIST)
+    vol = _volume(np.random.default_rng(9), height, width, d_pad,
+                  ndisp).to(device)
+    vol = _quantize_int8(vol)[0] if dtype == torch.int8 else vol.to(dtype)
+    build.LAUNCHES.reset()
+    got = cbca_fused(vol, arms, 3, DIST, int8_storage=True)
+    assert build.LAUNCHES.snapshot()["cbca_round_int8"] == 3
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, cbca_int8_plain(vol, arms, 3, DIST),
+                               rtol=0, atol=0)
+    if dtype == torch.int8:
+        assert bool((got[..., ndisp:] == 127).all())
+        assert int(got[..., :ndisp].abs().max()) <= 126
+    else:
+        assert got[..., ndisp:].float().min().item() >= 1e8
+
+
+@pytest.mark.cuda
+def test_batch_schedules_launch_their_kernels():
+    """The exact-f32, int8 d-chunked and staged schedules on the card."""
+    device = require_card()
+    params = init_params(0)
+    left, right = (x.numpy() for x in _images(48, 150))
+    ndisp = 200  # padded depth 256, so a 128-lane chunk really chunks
+    left, right = np.tile(left, (1, 2)), np.tile(right, (1, 2))
+
+    def run(stage_times=False, **kwargs):
+        pipeline = MatchPipeline(params, bucket=1, device=device, **kwargs)
+        build.LAUNCHES.reset()
+        if stage_times:
+            out, times = pipeline.stage_times(left, right, ndisp)
+            assert list(times) == ["features", "cost_volume", "cbca_1", "sgm",
+                                   "cbca_2", "wta", "lr_interpolation",
+                                   "subpixel", "median", "bilateral"]
+        else:
+            out = pipeline(left, right, ndisp)
+        return out, _launched()
+
+    exact, counts = run(cbca_impl="pallas")
+    assert counts == {"band_side": 2, "cbca_stencil_round": 36,
+                      "sgm_sweep": 8}
+    staged, counts = run(stage_times=True, cbca_impl="pallas")
+    assert counts == {"band_pair": 1, "cbca_stencil_round": 36,
+                      "sgm_sweep": 8}
+    np.testing.assert_array_equal(staged, exact)
+    fused, counts = run()
+    assert counts == {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8}
+    np.testing.assert_array_equal(fused, exact)  # K2 == K7 in f32
+    chunked, counts = run(cbca_chunk_d=128)
+    assert counts == {"band_side": 2, "cbca_round": 72, "sgm_sweep": 8}
+    np.testing.assert_array_equal(chunked, exact)
+    int8, counts = run(cbca_impl="fused8", volume_dtype="bfloat16",
+                       cbca_chunk_d=128)
+    assert counts == {"band_side": 2, "cbca_round_int8": 72, "sgm_sweep": 8}
+    assert np.isfinite(int8).all()
+    assert np.mean(np.abs(int8 - exact) > 2.0) <= 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distance", [1, 3, 17])
+def test_single_pass_cbca_kernels_at_other_radii(distance):
+    """K7 and K4 size their windows by the radius (distance - 1): 0, 2 and
+    the largest they take, 16; 18 is refused."""
+    device = require_card()
+    left, _ = _images(70, 150)
+    arms = tcbca.compute_arms(left.to(device), TAU, distance)
+    vol = _volume(np.random.default_rng(10), 70, 150, 128, 70).to(device)
+    torch.testing.assert_close(cbca_pallas(vol, arms, 2, distance),
+                               tcbca.cbca(vol, arms, 2, distance), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(
+        cbca_fused(vol, arms, 2, distance, int8_storage=True),
+        cbca_int8_plain(vol, arms, 2, distance), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="halo"):
+        cbca_pallas(vol, arms, 1, 18)

@@ -86,9 +86,45 @@ def test_weight_files_cross_load(tmp_path):
 
 
 def test_unsupported_weight_files_raise(tmp_path):
-    with pytest.raises(ValueError):
+    # a TF1 checkpoint needs tensorflow: the message names the JAX converter
+    with pytest.raises(ValueError, match="mccnn_tpu.cli.convert"):
         tparams.load_any(str(tmp_path / "model_epoch2000.ckpt"))
-    legacy = tmp_path / "legacy.npz"
-    np.savez(legacy, leaf_0=np.zeros(64), leaf_1=np.zeros((3, 3, 1, 64)))
-    with pytest.raises(ValueError):
-        tparams.load_params(str(legacy))
+    # legacy snapshots load now; malformed ones still raise
+    odd = tmp_path / "odd.npz"
+    np.savez(odd, leaf_0=np.zeros(64), leaf_1=np.zeros((3, 3, 1, 64)),
+             leaf_2=np.zeros(64))
+    with pytest.raises(ValueError, match="pairs"):
+        tparams.load_params(str(odd))
+    swapped = tmp_path / "swapped.npz"
+    np.savez(swapped, leaf_0=np.zeros((3, 3, 1, 64)), leaf_1=np.zeros(64))
+    with pytest.raises(ValueError, match="1-D bias"):
+        tparams.load_params(str(swapped))
+    adam = tmp_path / "adam.npz"
+    np.savez(adam, **{f"leaf_{i}": np.zeros(64 if i % 2 == 0 else
+                                            (3, 3, 1, 64))
+                      for i in range(6)})
+    with pytest.raises(ValueError, match="3-way"):
+        tparams.load_params(str(adam))
+
+
+@pytest.mark.parametrize("with_momentum", [False, True])
+def test_legacy_leaf_snapshots_load_as_in_jax(tmp_path, with_momentum):
+    """Anonymous ``leaf_{i}`` files: (b, w) pairs in sorted layer-name
+    order, optionally after a momentum mirror; both packages agree."""
+    config = NetConfig(num_layers=11, num_maps=8)
+    params = jax_params(config)
+    names = sorted(params)  # conv1 < conv10 < conv11 < conv2 ...
+    assert names[1] == "conv10"
+    leaves = [params[n][k] for n in names for k in ("b", "w")]
+    if with_momentum:
+        leaves = [np.zeros_like(x) for x in leaves] + leaves
+    path = tmp_path / "legacy.npz"
+    np.savez(path, num_leaves=len(leaves),
+             **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+    got = tparams.load_any(str(path))
+    want = jax_params_io.load_params(str(path))
+    assert sorted(got) == sorted(want) == names
+    for name in names:
+        for kind in ("w", "b"):
+            np.testing.assert_array_equal(got[name][kind], params[name][kind])
+            np.testing.assert_array_equal(got[name][kind], want[name][kind])

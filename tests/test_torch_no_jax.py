@@ -1,4 +1,4 @@
-"""mccnn_tpu_torch never imports JAX, directly or through mccnn_tpu."""
+"""mccnn_tpu_torch imports neither JAX nor the JAX package mccnn_tpu."""
 
 import pkgutil
 import re
@@ -26,12 +26,15 @@ def test_port_modules_import_without_jax():
     modules = _port_modules()
     assert "mccnn_tpu_torch.ops.sgm" in modules
     assert "mccnn_tpu_torch.cli.serve" in modules
+    assert "mccnn_tpu_torch.cli.match" in modules
+    assert "mccnn_tpu_torch.utils.scenes" in modules
+    assert "mccnn_tpu_torch.shared" not in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib')))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'mccnn_tpu') "
+        "or m.startswith(('jax.', 'jaxlib', 'mccnn_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -45,15 +48,17 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|mccnn_tpu)\b", re.M)
 
 
 def test_only_the_gateway_imports_mccnn_tpu():
-    """chip_smoke.py imports neither JAX nor the JAX package, and inside
-    the port only ``shared.py`` reaches into mccnn_tpu's numpy parts."""
+    """There is no gateway any more: nothing in the port or in
+    chip_smoke.py imports JAX or the JAX package (the port keeps its own
+    copies of the numpy-only modules)."""
     importers = sorted(
         str(path.relative_to(ROOT))
         for path in [ROOT / "chip_smoke.py",
                      *(ROOT / "mccnn_tpu_torch").rglob("*.py")]
         if _IMPORT.search(path.read_text())
     )
-    assert importers == ["mccnn_tpu_torch/shared.py"]
+    assert importers == []
+    assert not (ROOT / "mccnn_tpu_torch" / "shared.py").exists()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

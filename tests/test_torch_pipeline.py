@@ -82,8 +82,11 @@ def test_cbca_impl_names_run_the_default_path(case, cbca_impl):
 @pytest.mark.parametrize("kwargs", [
     {"cbca_impl": "fused16"},
     {"cbca_impl": "mxu"},
+    {"cbca_impl": "rolling"},
+    {"cbca_impl": "fused2_16"},
+    {"cbca_impl": "pallas", "volume_dtype": "bfloat16"},
+    {"cost_volume_method": "scan"},
     {"volume_dtype": "int8"},
-    {"cbca_chunk_d": 128},
     {"config": MatchConfig(cbca_joint_regions=True)},
     {"config": MatchConfig(sgm_u8=True)},
 ])
@@ -102,8 +105,12 @@ def test_pipeline_buckets_and_crops(case):
     want = match_pair(case["net"], *map(torch.from_numpy, padded),
                       case["ndisp"]).numpy()[:45, :61]
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(ValueError):
-        pipeline.stage_times(left, right, case["ndisp"])
+    staged, times = pipeline.stage_times(left, right, case["ndisp"])
+    assert list(times) == ["features", "cost_volume", "cbca_1", "sgm",
+                           "cbca_2", "wta", "lr_interpolation", "subpixel",
+                           "median", "bilateral"]
+    assert all(seconds >= 0 for seconds in times.values())
+    np.testing.assert_array_equal(staged, got)
 
 
 def test_pipeline_refuses_cuda_without_a_card():

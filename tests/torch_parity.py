@@ -37,7 +37,7 @@ def scene_pair(family="occlusion", height=48, width=64, seed=0,
                max_disparity=10):
     """Standardized (left, right, gt, ndisp) of a synthetic scene."""
     from mccnn_tpu_torch.pipeline.match import standardize_image
-    from mccnn_tpu_torch.shared import make_scene
+    from mccnn_tpu_torch.utils.scenes import make_scene
 
     s = make_scene(family, np.random.default_rng(seed), height, width,
                    max_disparity)
