@@ -6,12 +6,14 @@
 Run from the checkout root on a machine with one NVIDIA H100. It
 
   1. prints the card (nvidia-smi name and power limit) and the versions;
-  2. builds the six CUDA kernels from ``mccnn_tpu_torch/csrc`` (timed; one
+  2. builds the ten CUDA kernels from ``mccnn_tpu_torch/csrc`` (timed; one
      nvcc per source, started together);
   3. holds each kernel against its plain PyTorch version on the card at a
      middle shape (256 x 384, ndisp 64 and 200; K1-K3 and K5 in f32 and
      bf16, K7 in f32, K4 in its float and raw int8 modes; K5 also against
-     two K1 launches);
+     two K1 launches; K8 and K9 in f32, bf16 and the bf16-operand mode, also
+     against K2; K2 with the bf16-operand flag; K3 on penalty codes; K6 also
+     against K5; K10's output against its input in both layouts);
   4. drives the serving path -- ``MatchPipeline.dispatch``/``fetch`` at
      1000 x 1504, ndisp 200, bf16 volumes, paper-default MatchConfig, the
      fast MC-CNN at full width with seeded random weights -- on one
@@ -25,9 +27,19 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      --cbca_chunk_d 128``: K1 2, K4 72, K3 8) and ``--stage_times
      --cbca_impl pallas`` (K5 1, K7 36, K3 8) -- checking launch counts,
      artifacts, ranges, run 1 == run 3 == the K2 pipeline in f32, and run
-     2's bad-2.0 within 0.5 pt of run 1's;
+     2's bad-2.0 within 0.5 pt of run 1's; then the variants on the same
+     scene: ``--cbca_impl rolling --volume_dtype bfloat16`` (K1 2, K8 36,
+     K3 8), ``--cbca_impl fused2 --volume_dtype bfloat16`` (K1 2, K9 18,
+     K3 8), ``--cbca_impl fused2_16`` in f32 (K9 18, K3 8), and
+     ``MatchPipeline`` with ``cbca_impl="rolling16"`` and
+     ``MatchConfig(sgm_u8=True)`` (K8 36, K3 8 on penalty codes), which must
+     equal the same run without ``sgm_u8`` bit for bit; each within 0.5 pt
+     bad-2.0 of the exact-f32 run, the two bf16 runs equal to the K2 bf16
+     pipeline bit for bit; then ``band_pair_pallas(use_mxu=False)`` (K6) on
+     the scene's descriptors and the stream probe's ``main()`` (K10);
   6. compares a whole pair on the kernels with the same pair on CPU copies
-     (where every wrapper runs its plain version);
+     (where every wrapper runs its plain version), in f32 and bf16 and with
+     ``cbca_impl`` fused16, rolling16 and mxu and with joint regions;
   7. holds each kernel against its plain version at the main-path shapes
      (1000 x 1504 x 256), times both with CUDA events, computes each
      kernel's bound from this run's inputs, and profiles one pair.
@@ -71,7 +83,16 @@ KERNELS = {
                   "mccnn_tpu/ops/cost_volume_pallas.py:187"),
     "cbca_stencil_round": ("mccnn_tpu_torch/csrc/cbca_stencil.cu",
                            "mccnn_tpu/ops/cbca_pallas.py:40"),
+    "band_scores": ("mccnn_tpu_torch/csrc/band_vpu.cu",
+                    "mccnn_tpu/ops/cost_volume_pallas.py:53"),
+    "cbca_rolling_round": ("mccnn_tpu_torch/csrc/cbca_rolling.cu",
+                           "mccnn_tpu/ops/cbca_rolling.py:68"),
+    "cbca_two_rounds": ("mccnn_tpu_torch/csrc/cbca_two_round.cu",
+                        "mccnn_tpu/ops/cbca_fused2.py:85"),
+    "cbca_stream": ("mccnn_tpu_torch/csrc/cbca_stream.cu",
+                    "tools/bench_cbca_stream.py:44"),
 }
+PROBE_ITERS = 4  # the stream probe's ITERS: a check, a warm-up, the rounds
 # launches per pair on each driven path; kernels not named are launched 0
 # times there
 PER_PAIR = {
@@ -82,6 +103,16 @@ PER_PAIR = {
                              "sgm_sweep": 8},
     "match stage_times": {"band_pair": 1, "cbca_stencil_round": 36,
                           "sgm_sweep": 8},
+    "match rolling bf16": {"band_side": 2, "cbca_rolling_round": 36,
+                           "sgm_sweep": 8},
+    "match fused2 bf16": {"band_side": 2, "cbca_two_rounds": 18,
+                          "sgm_sweep": 8},
+    "match fused2_16 f32": {"band_side": 2, "cbca_two_rounds": 18,
+                            "sgm_sweep": 8},
+    "pipeline rolling16 sgm_u8": {"band_side": 2, "cbca_rolling_round": 36,
+                                  "sgm_sweep": 8},
+    "raw bands": {"band_scores": 1},
+    "stream probe": {"cbca_stream": PROBE_ITERS + 2},
 }
 # the path whose launch count stands in the summary line for each kernel
 OWN_PATH = {
@@ -89,7 +120,14 @@ OWN_PATH = {
     "cbca_stencil_round": "match exact-f32",
     "cbca_round_int8": "match int8 d-chunked",
     "band_pair": "match stage_times",
+    "band_scores": "raw bands",
+    "cbca_rolling_round": "match rolling bf16",
+    "cbca_two_rounds": "match fused2 bf16",
+    "cbca_stream": "stream probe",
 }
+# K10 is timed at the tile shapes of K7 (one 32 x 32 x 8-lane block) and of
+# K2 (32-column and 32-row tiles of 128 lanes)
+STREAM_TILES = {"K7": (32, 32, 8), "K2": (32, 32, 128)}
 # the card's published peaks (H100 SXM data sheet, dense): device memory
 # rate; f32 outside the tensor cores, bf16 and int8 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -146,15 +184,28 @@ def check_kernels(device, errors: Errors) -> None:
         cbca_fused,
         cbca_int8_plain,
     )
+    from mccnn_tpu_torch.ops.cbca_fused2 import cbca_fused_two
     from mccnn_tpu_torch.ops.cbca_pallas import cbca_pallas
+    from mccnn_tpu_torch.ops.cbca_rolling import cbca_fused_rolling
     from mccnn_tpu_torch.ops.common import pad_disparities
     from mccnn_tpu_torch.ops.cost_volume import (
         band_pair,
+        band_pair_pallas,
         band_pair_plain,
+        band_pair_scores_plain,
         band_side,
         band_side_plain,
     )
-    from mccnn_tpu_torch.ops.sgm import _DIRECTIONS, sweep_cuda, sweep_plain
+    from mccnn_tpu_torch.ops.sgm import (
+        _DIRECTIONS,
+        penalty_scale_u8,
+        sweep_cuda,
+        sweep_plain,
+    )
+    from mccnn_tpu_torch.tools.bench_cbca_stream import (
+        cbca_stream,
+        cbca_stream_plain,
+    )
     from mccnn_tpu_torch.utils.config import MatchConfig
 
     config = MatchConfig()
@@ -238,6 +289,42 @@ def check_kernels(device, errors: Errors) -> None:
                         (got_raw[..., ndisp:] == 127).all()):
                     raise AssertionError("cbca_round_int8 raw: BIG lanes "
                                          "left 127")
+                # K6: both raw score bands from the f32 descriptors; the
+                # plain version's correlation and K5's fmaf chain, so equal
+                # to both (tolerance 0.0): -K6 == K5 with ndisp = d_pad
+                scores = band_pair_pallas(a, o, d_pad, use_mxu=False)
+                costs = band_pair(a, o, d_pad, d_pad, dtype)
+                for side, score, want, cost in zip(
+                        ("left", "right"), scores,
+                        band_pair_scores_plain(a, o, d_pad), costs):
+                    err = (score - want).abs().max().item()
+                    errors.record("band_scores", f"{tag} {side}", err, 0.0)
+                    if not torch.equal(-score, cost):
+                        raise AssertionError(
+                            f"band_scores {tag} {side}: -scores differ from "
+                            "band_pair")
+            # K8 and K9 (three rounds: a K9 pass and an odd K2 round) in this
+            # storage type and, on f32 storage, with bf16 operands, which is
+            # also K2's new flag: the plain round's f32 order (tolerance
+            # 0.0), and equal to K2
+            for compute in (None,) if bf16 else (None, torch.bfloat16):
+                what = tag + (" bf16 operands" if compute else "")
+                want3 = cbca(volume, arms, 3, config.cbca_distance, compute)
+                fused3 = cbca_fused(volume, arms, 3, config.cbca_distance,
+                                    compute_dtype=compute)
+                if compute:
+                    err = (fused3 - want3).abs().max().item()
+                    errors.record("cbca_round", what, err, 0.0)
+                for name, variant in (
+                        ("cbca_rolling_round", cbca_fused_rolling),
+                        ("cbca_two_rounds", cbca_fused_two)):
+                    got3 = variant(volume, arms, 3, config.cbca_distance,
+                                   compute_dtype=compute)
+                    err = (got3.float() - want3.float()).abs().max().item()
+                    errors.record(name, what, err, 0.0)
+                    if not torch.equal(got3, fused3):
+                        raise AssertionError(f"{name} {what}: differs from "
+                                             "cbca_round")
             for direction in _DIRECTIONS:
                 out_k = torch.empty_like(got)
                 out_p = torch.empty_like(got)
@@ -255,6 +342,27 @@ def check_kernels(device, errors: Errors) -> None:
                               2 * bf16_ulp(top) if bf16 else 2.4e-7 * top)
                 if out_k[..., ndisp:].float().min().item() < 1e8:
                     raise AssertionError("sgm_sweep pad lanes fell below 1e8")
+                # K3 on a code volume: the same predicate, so the same
+                # sweep as on the gradient planes (tolerance 0.0)
+                codes = penalty_scale_u8(left_img, right_img, "L", direction,
+                                         d_pad, config.sgm_d)
+                out_c = torch.empty_like(got)
+                sweep_cuda(got, out_c, left_img, right_img, "L", direction,
+                           config, codes)
+                err = (out_c.float() - out_k.float()).abs().max().item()
+                errors.record("sgm_sweep", f"{tag} dir {direction} on codes",
+                              err, 0.0)
+    # K10: a copy; the output equals the input in both layouts
+    stream_in = (torch.randn((height, width, 256), device=device)
+                 * 50).to(torch.bfloat16)
+    for label, (tile_h, tile_w, tile_d) in STREAM_TILES.items():
+        split = stream_in.reshape(height, width, 256 // tile_d, tile_d)
+        split = split.permute(2, 0, 1, 3).contiguous()
+        for layout, vol in (("flat", stream_in), ("dsplit", split)):
+            out = cbca_stream(vol, tile_h, tile_w, tile_d, layout == "dsplit")
+            err = (out.float() - cbca_stream_plain(vol).float()).abs().max()
+            errors.record("cbca_stream", f"{label}'s tiles {layout}",
+                          err.item(), 0.0)
     torch.cuda.synchronize()
 
 
@@ -407,8 +515,9 @@ def write_png(image: np.ndarray, path: str) -> None:
 
 
 def drive_batch_matcher(device, launches, smi: str) -> dict:
-    """Phase 5: ``cli.match.main`` three times on one full-width scene in a
-    temporary Middlebury layout; returns the launch counts per run."""
+    """Phase 5: ``cli.match.main`` on one full-width scene in a temporary
+    Middlebury layout, three batch schedules and three CBCA variants, then
+    the variants that have no CLI flag; returns the launch counts per run."""
     import torch
     from mccnn_tpu_torch.cli import match as cli
     from mccnn_tpu_torch.data.dataset import load_grayscale
@@ -432,6 +541,12 @@ def drive_batch_matcher(device, launches, smi: str) -> dict:
         "match int8 d-chunked": ["--cbca_impl", "fused8", "--volume_dtype",
                                  "bfloat16", "--cbca_chunk_d", "128"],
         "match stage_times": ["--stage_times", "--cbca_impl", "pallas"],
+        "match rolling bf16": ["--cbca_impl", "rolling", "--volume_dtype",
+                               "bfloat16"],
+        "match fused2 bf16": ["--cbca_impl", "fused2", "--volume_dtype",
+                              "bfloat16"],
+        "match fused2_16 f32": ["--cbca_impl", "fused2_16", "--volume_dtype",
+                                "float32"],
     }
     results = {}
     log(smi)
@@ -526,34 +641,149 @@ def drive_batch_matcher(device, launches, smi: str) -> dict:
     check_ranges("exact-f32", pipeline.net, *tensors, cbca_impl="pallas")
     check_ranges("int8 chunked", pipeline.net, *tensors, cbca_impl="fused8",
                  volume_dtype="bfloat16", cbca_chunk_d=128)
-    return {path: r["counts"] for path, r in results.items()}
+    counts = {path: r["counts"] for path, r in results.items()}
+    counts.update(drive_variants(device, launches, scene, left, right,
+                                 results, tensors, pipeline.net))
+    return counts
+
+
+def drive_variants(device, launches, scene, left, right, results, tensors,
+                   net) -> dict:
+    """Phase 5, second half: the variant runs' checks, the variants without
+    a CLI flag (``sgm_u8``), K6 through ``band_pair_pallas`` and K10 through
+    the stream probe. Returns the launch counts of the new paths."""
+    import torch
+    from mccnn_tpu_torch.models.net import extract_features, init_params
+    from mccnn_tpu_torch.ops.common import pad_disparities
+    from mccnn_tpu_torch.ops.cost_volume import band_pair, band_pair_pallas
+    from mccnn_tpu_torch.pipeline.match import MatchPipeline
+    from mccnn_tpu_torch.tools import bench_cbca_stream
+    from mccnn_tpu_torch.utils.config import MatchConfig
+    from mccnn_tpu_torch.utils.evaluate import bad_n
+
+    def run(what, config=MatchConfig(), **options):
+        """One timed pair through ``MatchPipeline`` as the CLI builds it."""
+        pipeline = MatchPipeline(init_params(SEED), config, bucket=1,
+                                 device=device, **options)
+        pipeline(left, right, MAIN_NDISP)  # first use of this schedule
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        t0 = time.perf_counter()
+        disparity = pipeline(left, right, MAIN_NDISP)
+        seconds = time.perf_counter() - t0
+        counts = launches.snapshot()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        bad2 = float(bad_n(disparity, scene["gt"], 2.0))
+        log(f"  {what}: {seconds:.4f} s/pair, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, peak device memory "
+            f"{peak_gb:.2f} GB, bad-2.0 {bad2:.4f} (random weights)")
+        return disparity, counts, bad2
+
+    # rolling16 in f32 on penalty codes, and the same run on the planes
+    path = "pipeline rolling16 sgm_u8"
+    coded, counts, coded_bad2 = run(path, MatchConfig(sgm_u8=True),
+                                    cbca_impl="rolling16")
+    check_counts(path, counts)
+    uncoded, _, _ = run("pipeline rolling16", cbca_impl="rolling16")
+    if not np.array_equal(coded, uncoded):
+        raise AssertionError("sgm_u8 changed the disparity")
+    # K8 and K9 equal K2 bit for bit, so in bf16 storage they must give the
+    # K2 bf16 pipeline's map
+    fused_bf16, _, _ = run("pipeline fused bf16 (K2)",
+                           volume_dtype="bfloat16")
+    for name in ("match rolling bf16", "match fused2 bf16"):
+        if not np.array_equal(results[name]["disparity"], fused_bf16):
+            raise AssertionError(f"{name} differs from the K2 bf16 pipeline")
+    exact_bad2 = results["match exact-f32"]["bad2"]
+    deltas = {name: abs(results[name]["bad2"] - exact_bad2)
+              for name in ("match rolling bf16", "match fused2 bf16",
+                           "match fused2_16 f32")}
+    deltas[path] = abs(coded_bad2 - exact_bad2)
+    log(f"  sgm_u8 == planes; rolling bf16 == fused2 bf16 == K2 bf16 "
+        f"pipeline; bad-2.0 deltas to exact-f32 (limit 0.005): "
+        f"{ {k: round(v, 4) for k, v in deltas.items()} }")
+    if not max(deltas.values()) <= 0.005:
+        raise AssertionError(f"a variant's bad-2.0 is off exact f32: {deltas}")
+    check_ranges("rolling bf16", net, *tensors, cbca_impl="rolling",
+                 volume_dtype="bfloat16")
+    new_counts = {path: counts}
+
+    # K6 through its entry point, on this scene's f32 descriptors
+    d_pad = pad_disparities(MAIN_NDISP)
+    with torch.no_grad():
+        features = [extract_features(net, t).contiguous() for t in tensors]
+    launches.reset()
+    scores = band_pair_pallas(*features, d_pad, use_mxu=False)
+    new_counts["raw bands"] = launches.snapshot()
+    check_counts("raw bands", new_counts["raw bands"])
+    costs = band_pair(*features, d_pad, d_pad, torch.float32)
+    for side, score, cost in zip(("left", "right"), scores, costs):
+        if tuple(score.shape) != (*MAIN_SHAPE, d_pad) or not bool(
+                torch.isfinite(score).all()):
+            raise AssertionError(f"raw {side} band: bad shape or values")
+        if not torch.equal(-score, cost):
+            raise AssertionError(f"raw {side} band: -K6 differs from K5")
+    log(f"  raw bands: band_pair_pallas(use_mxu=False) {tuple(scores[0].shape)}"
+        f" x 2, -K6 == K5(ndisp = d_pad) bit for bit")
+    del scores, costs, features
+
+    # K10 through the probe's own entry point, at its default tile shape
+    os.environ["ITERS"] = str(PROBE_ITERS)
+    launches.reset()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        bench_cbca_stream.main()
+    new_counts["stream probe"] = launches.snapshot()
+    check_counts("stream probe", new_counts["stream probe"])
+    log("  " + printed.getvalue().strip())
+    return new_counts
 
 
 def compare_whole_pair(device) -> None:
-    """Phase 5: the pair on the kernels against the same pair run on CPU
-    copies, where every wrapper takes its plain version."""
+    """Phase 6: the pair on the kernels against the same pair run on CPU
+    copies, where every wrapper takes its plain version: the two storage
+    types at ndisp 64, then at ndisp 32 the bf16-operand modes of K2 and K8
+    and the two torch-op aggregations, ``mxu`` and joint regions (the
+    latter with 1 + 2 rounds: its CPU copy takes seconds per round)."""
     import copy
 
+    import torch
     from mccnn_tpu_torch.models.net import init_params, params_from_numpy
     from mccnn_tpu_torch.pipeline.match import match_pair
+    from mccnn_tpu_torch.utils.config import MatchConfig
 
     height, width = MIDDLE_SHAPE
-    ndisp = 64
     net_cpu = params_from_numpy(init_params(SEED))
     net = copy.deepcopy(net_cpu).to(device)
     s, left, right = scene_images(height, width, "slanted",
                                   np.random.default_rng(SEED + 1), device, 50)
-    for vdtype in ("float32", "bfloat16"):
-        got = match_pair(net, left, right, ndisp, volume_dtype=vdtype).cpu()
-        want = match_pair(net_cpu, left.cpu(), right.cpu(), ndisp,
-                          volume_dtype=vdtype)
+    joint = MatchConfig(cbca_joint_regions=True, cbca_num_iterations_1=1,
+                        cbca_num_iterations_2=2)
+    cases = [
+        ("float32", 64, MatchConfig(), {"volume_dtype": "float32"}),
+        ("bfloat16", 64, MatchConfig(), {"volume_dtype": "bfloat16"}),
+        ("fused16", 32, MatchConfig(), {"cbca_impl": "fused16"}),
+        ("rolling16", 32, MatchConfig(), {"cbca_impl": "rolling16"}),
+        ("mxu", 32, MatchConfig(), {"cbca_impl": "mxu"}),
+        ("joint regions, 1 + 2 rounds", 32, joint, {}),
+    ]
+    for what, ndisp, config, options in cases:
+        match_pair(net, left, right, ndisp, config, **options)  # first use
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = match_pair(net, left, right, ndisp, config, **options).cpu()
+        seconds = time.perf_counter() - t0
+        want = match_pair(net_cpu, left.cpu(), right.cpu(), ndisp, config,
+                          **options)
         # cuDNN and CPU convolutions round apart, so a few WTA ties flip
         diff = (got - want).abs()
         far = (diff > 1.0).float().mean().item()
-        log(f"  {vdtype}: pixels off by > 1 px {far:.5f} (limit 0.01), "
-            f"identical {(diff == 0).float().mean().item():.5f}")
+        log(f"  {what} (ndisp {ndisp}): {seconds:.4f} s/pair on the card, "
+            f"pixels off by > 1 px {far:.5f} (limit 0.01), identical "
+            f"{(diff == 0).float().mean().item():.5f}")
         if not far <= 0.01:
-            raise AssertionError(f"whole pair {vdtype}: {far} of pixels off")
+            raise AssertionError(f"whole pair {what}: {far} of pixels off")
 
 
 def time_events(fn, reps: int) -> float:
@@ -586,8 +816,12 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     """Phase 7: each kernel against its plain version at the main-path
     shapes (1000 x 1504, ndisp 200, D_pad 256; K1-K3 in bf16 as the serving
     path runs them, K5 and K7 in f32 and K4 on int8 as the batch matcher
-    runs them, K4 timed on the 128-lane chunk the d-chunked run hands it):
-    outputs, then times and bounds."""
+    runs them, K4 timed on the 128-lane chunk the d-chunked run hands it;
+    K8 and K9 in bf16 as the variant runs launch them, K9 per two-round
+    pass; K6 on the f32 descriptors; K10 in bf16, flat, at K7's and K2's
+    tile shapes on the volume padded to whole tiles; K2 with bf16 operands
+    on f32 storage and K3 on penalty codes): outputs, then times and
+    bounds."""
     import torch
     from mccnn_tpu_torch.ops.cbca import (
         cbca_round,
@@ -600,15 +834,28 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         cbca_round_int8_cuda,
         cbca_round_int8_plain,
     )
+    from mccnn_tpu_torch.ops.cbca_fused2 import cbca_two_rounds_cuda
     from mccnn_tpu_torch.ops.cbca_pallas import cbca_stencil_round_cuda
+    from mccnn_tpu_torch.ops.cbca_rolling import cbca_rolling_round_cuda
     from mccnn_tpu_torch.ops.common import pad_disparities
     from mccnn_tpu_torch.ops.cost_volume import (
         band_pair,
         band_pair_plain,
+        band_pair_scores,
+        band_pair_scores_plain,
         band_side,
         band_side_plain,
     )
-    from mccnn_tpu_torch.ops.sgm import _DIRECTIONS, sweep_cuda, sweep_plain
+    from mccnn_tpu_torch.ops.sgm import (
+        _DIRECTIONS,
+        penalty_scale_u8,
+        sweep_cuda,
+        sweep_plain,
+    )
+    from mccnn_tpu_torch.tools.bench_cbca_stream import (
+        cbca_stream,
+        cbca_stream_plain,
+    )
     from mccnn_tpu_torch.utils.config import MatchConfig
 
     config = MatchConfig()
@@ -658,6 +905,31 @@ def main_shape_kernels(device, errors: Errors) -> dict:
             top = out_p[..., :ndisp].float().abs().max().item()
             compare("sgm_sweep", f"{side} dir {direction}", out_k, out_p,
                     2 * bf16_ulp(top))
+            # on a code volume: the same sweep (tolerance 0.0)
+            codes = penalty_scale_u8(left, right, choice, direction, d_pad,
+                                     config.sgm_d)
+            sweep_cuda(aggregated, out_p, left, right, choice, direction,
+                       config, codes)
+            compare("sgm_sweep", f"{side} dir {direction} on codes", out_p,
+                    out_k, 0.0)
+            del codes
+        # K8 and K9 in bf16: the plain rounds' f32 order (tolerance 0.0),
+        # and equal to K2 (one round above; a second one here)
+        rolled = torch.empty_like(volume)
+        cbca_rolling_round_cuda(volume, rolled, arms, inv, distance)
+        compare("cbca_rolling_round", side, rolled,
+                cbca_round(volume, arms, inv, distance), 0.0)
+        if not torch.equal(rolled, aggregated):
+            raise AssertionError("cbca_rolling_round differs from cbca_round")
+        twice = torch.empty_like(volume)
+        cbca_two_rounds_cuda(volume, twice, arms, inv, distance)
+        compare("cbca_two_rounds", side, twice,
+                cbca_round(aggregated, arms, inv, distance), 0.0)
+        cbca_round_cuda(aggregated, scratch, rolled, arms, inv, distance)
+        if not torch.equal(twice, rolled):
+            raise AssertionError("cbca_two_rounds differs from two launches "
+                                 "of cbca_round")
+        del rolled, twice
         # the int8 schedule's operand: this side's bf16 volume, quantized;
         # integer math, tolerance 0.0, at the full depth and at the
         # 128-lane chunk the d-chunked run hands the kernel
@@ -689,11 +961,29 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         compare("band_pair", f"{side} f32 vs two band_side", got, one, 0.0)
     del ones
     for side, vol32 in zip(("left", "right"), pair32):
-        _, arms, inv, _, _, _ = volumes[side]
+        _, arms, inv, scratch, _, _ = volumes[side]
         got = torch.empty_like(vol32)
         cbca_stencil_round_cuda(vol32, got, arms, inv, distance)
         compare("cbca_stencil_round", f"{side} f32", got,
                 cbca_round(vol32, arms, inv, distance), 0.0)
+        # K2 with bf16 operands on f32 storage (tolerance 0.0)
+        cbca_round_cuda(vol32, scratch, got, arms, inv, distance,
+                        torch.bfloat16)
+        compare("cbca_round", f"{side} f32, bf16 operands", got,
+                cbca_round(vol32, arms, inv, distance, torch.bfloat16), 0.0)
+    # K6 on the f32 descriptors, raw scores on all 256 lanes (tolerance 0.0
+    # against its plain version; -K6 == K5 with ndisp = d_pad)
+    scores = band_pair_scores(fl32, fr32, d_pad)
+    plain_scores = band_pair_scores_plain(fl32, fr32, d_pad)
+    costs = band_pair(fl32, fr32, d_pad, d_pad, torch.float32)
+    for side, score, want, cost in zip(("left", "right"), scores,
+                                       plain_scores, costs):
+        errors.record("band_scores", side,
+                      (score - want).abs().max().item(), 0.0)
+        if not torch.equal(-score, cost):
+            raise AssertionError(f"band_scores {side}: -scores differ from "
+                                 "band_pair")
+    del scores, plain_scores, costs
     torch.cuda.synchronize()
 
     volume, arms, inv, scratch, out, q = volumes["left"]
@@ -703,6 +993,14 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     q_chunk = q[..., :chunk_lanes].contiguous()
     out8, out8_chunk = torch.empty_like(q), torch.empty_like(q_chunk)
     del volumes, pair32
+    # K10's operand: the bf16 volume padded to whole 32-row tiles, as the
+    # probe pads it; the output equals the input
+    tiled = torch.zeros((-(-height // 32) * 32, width, d_pad), dtype=dtype,
+                        device=device)
+    tiled[:height] = volume
+    for label, tiles in STREAM_TILES.items():
+        err = (cbca_stream(tiled, *tiles).float() - tiled.float()).abs().max()
+        errors.record("cbca_stream", f"{label}'s tiles", err.item(), 0.0)
     times = {}
 
     def pair(name, kernel, plain, reps_k, reps_p):
@@ -750,6 +1048,49 @@ def main_shape_kernels(device, errors: Errors) -> dict:
          lambda: cbca_stencil_round_cuda(vol32, out32, arms, inv, distance),
          lambda: cbca_round(vol32, arms, inv, distance),
          20, 2)
+    pair("cbca_rolling_round",
+         lambda: cbca_rolling_round_cuda(volume, out, arms, inv, distance),
+         lambda: cbca_round(volume, arms, inv, distance),
+         20, 2)
+    pair("cbca_two_rounds",
+         lambda: cbca_two_rounds_cuda(volume, out, arms, inv, distance),
+         lambda: cbca_round(cbca_round(volume, arms, inv, distance), arms,
+                            inv, distance),
+         20, 1)
+    pair("band_scores",
+         lambda: band_pair_scores(fl32, fr32, d_pad),
+         lambda: band_pair_scores_plain(fl32, fr32, d_pad),
+         10, 2)
+    # K10 beside the one PyTorch call that computes the same function, a
+    # copy; its time in the summary is the one at K7's tile shape
+    for label, tiles in STREAM_TILES.items():
+        pair(f"cbca_stream {label}'s tiles",
+             lambda t=tiles: cbca_stream(tiled, *t),
+             lambda: cbca_stream_plain(tiled),
+             20, 20)
+    stream_k2 = times.pop("cbca_stream K2's tiles")
+    times["cbca_stream"] = times.pop("cbca_stream K7's tiles")
+    times["cbca_stream"].update(
+        library_ms=times["cbca_stream"]["plain_ms"],
+        ms_at_k2_tiles=stream_k2["ms"])
+    # the two new flags, kernel only: K2 with bf16 operands on f32 storage
+    # beside K2 on f32, K3 on penalty codes beside the torch ops that build
+    # them; extra keys of the K2 and K3 entries of the summary
+    codes = penalty_scale_u8(left, right, "L", (0, 1), d_pad, config.sgm_d)
+    extras = (
+        ("cbca_round", "ms_f32", lambda: cbca_round_cuda(
+            vol32, scratch, out32, arms, inv, distance)),
+        ("cbca_round", "ms_f32_bf16_operands", lambda: cbca_round_cuda(
+            vol32, scratch, out32, arms, inv, distance, torch.bfloat16)),
+        ("sgm_sweep", "ms_horizontal_on_codes", lambda: sweep_cuda(
+            volume, out, left, right, "L", (0, 1), config, codes)),
+        ("sgm_sweep", "ms_codes_build_horizontal", lambda: penalty_scale_u8(
+            left, right, "L", (0, 1), d_pad, config.sgm_d)),
+    )
+    for name, key, fn in extras:
+        times[name][key] = time_events(fn, 10)
+        log(f"  {name:18s} {key:28s} {times[name][key]:.4f} ms")
+    del codes
 
     # bounds from this run's inputs. Operations: a band output in range is
     # 64 multiply-adds; a CBCA output adds one value per arm pixel (this
@@ -777,6 +1118,18 @@ def main_shape_kernels(device, errors: Errors) -> dict:
                                  chunk_lanes * adds_per_lane, "int8"),
         "sgm_sweep": bound(2 * elements * 2 + 2 * height * width,
                            8 * elements, "f32"),
+        # K8 and K9 read and write the bf16 volume once, K9 for two rounds
+        # of sums; K6 multiplies on all d_pad lanes; K10 moves the padded
+        # volume once each way
+        "cbca_rolling_round": bound(2 * elements * 2 + planes, arm_adds,
+                                    "f32"),
+        "cbca_two_rounds": bound(2 * elements * 2 + planes, 2 * arm_adds,
+                                 "f32"),
+        "band_scores": bound(
+            2 * height * width * 64 * 4 + 2 * elements * 4,
+            2 * 2 * 64 * height * sum(width - d for d in range(d_pad)),
+            "f32"),
+        "cbca_stream": bound(2 * tiled.numel() * 2, 0, "f32"),
     }
     for name, (ms, by) in bounds.items():
         times[name].update(bound_ms=ms, bound_by=by)
@@ -867,10 +1220,12 @@ def main() -> int:
     launches = {"serve": counts}
 
     log(f"== batch matcher: cli.match.main on one {MAIN_SHAPE[0]} x "
-        f"{MAIN_SHAPE[1]} ndisp-{MAIN_NDISP} scene, three schedules")
+        f"{MAIN_SHAPE[1]} ndisp-{MAIN_NDISP} scene, three schedules and three "
+        "CBCA variants; then sgm_u8, the raw bands and the stream probe")
     launches.update(drive_batch_matcher(device, build.LAUNCHES, smi))
 
-    log("== whole pair: kernels against CPU copies (256 x 384)")
+    log("== whole pair: kernels against CPU copies (256 x 384), the "
+        "bf16-operand modes, mxu and joint regions included")
     compare_whole_pair(device)
 
     log("== kernels against their plain versions at the main-path shapes "
@@ -888,11 +1243,11 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[OWN_PATH[name]][name],
             "max_abs_err": errors.worst[name],
-            **times[name],
             # no single PyTorch call computes a band read off a
             # correlation's diagonals, a sum over data-dependent cross
-            # arms, or a directional DP sweep
+            # arms, or a directional DP sweep; K10's is Tensor.clone()
             "library_ms": None,
+            **times[name],
             "launches_by_path": {path: c[name]
                                  for path, c in launches.items()},
         }

@@ -6,15 +6,15 @@ reference's match.py): a left-image list file, ``--data_dir`` /
 slicing, all CBCA/SGM/blur hyperparameters, and Middlebury-v3 artifacts
 (``disp0MCCNN.pfm`` / ``.pgm``, ``timeMCCNN.txt``) per scene. ``--device``
 picks the device (default ``cuda``; ``cpu`` runs the plain versions).
-Options the port does not run yet (``--cbca_impl`` mxu, fused16, fused2*,
-rolling*; ``--cbca_joint_regions``; ``--multihost``) exit with a
-``ValueError``.
+Every ``--cbca_impl`` of the JAX matcher and ``--cbca_joint_regions`` run;
+``--multihost`` and TF1 checkpoints (``--resume`` of a ``.ckpt``) are what
+the port does not run yet, and raise.
 
 Usage:
 
     python -m mccnn_tpu_torch.cli.match --list_file scenes.txt \
         --resume weights.npz --data_dir data --save_dir out -t run \
-        -s 0 -e 99 [--device cuda] [--cbca_impl pallas] [--stage_times]
+        -s 0 -e 99 [--device cuda] [--cbca_impl rolling] [--stage_times]
 """
 
 from __future__ import annotations
@@ -59,7 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--blur_sigma", type=float, default=6)
     parser.add_argument("--blur_threshold", type=float, default=2)
     parser.add_argument("--cbca_joint_regions", action="store_true",
-                        help="the paper's joint-region CBCA (not ported yet)")
+                        help="the paper's disparity-conditioned joint-region "
+                             "CBCA (disabled in the reference as impractical;"
+                             " torch ops, slow)")
     parser.add_argument("--sgm_paper_mode", action="store_true",
                         help="independent-direction SGM average instead of the "
                              "reference's chained in-place sweeps")
@@ -75,8 +77,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "'xla' run the two-pass f32-sum kernel; "
                              "'pallas' is the exact-f32 single-pass kernel "
                              "(float32 volumes only); 'fused8' is the "
-                             "int8-storage memory mode. The other names are "
-                             "not ported yet")
+                             "int8-storage memory mode; 'rolling' rolls the "
+                             "rows through a ring (each volume row read once "
+                             "per column strip); 'fused2' runs two rounds per "
+                             "pass; 'fused16', 'rolling16' and 'fused2_16' "
+                             "keep float32 storage and round the rounds' "
+                             "operands to bfloat16; 'mxu' is banded 0/1 "
+                             "matrix products with bfloat16-rounded operands "
+                             "(float32 volumes only)")
     parser.add_argument("--volume_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
                         help="cost-volume storage dtype; bfloat16 halves "

@@ -106,7 +106,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cbca_impl", type=str, default="auto",
                         help="auto, fused or xla run kernel K2 on CUDA; "
                              "pallas is the exact-f32 single-pass kernel K7, "
-                             "fused8 the int8 kernel K4")
+                             "fused8 the int8 kernel K4, rolling the "
+                             "row-rolling kernel K8, fused2 the two-round "
+                             "kernel K9; fused16, rolling16 and fused2_16 "
+                             "round the operands to bfloat16 on float32 "
+                             "storage; mxu is torch matrix products")
     parser.add_argument("--volume_dtype", type=str, default="float32")
     parser.add_argument("--cbca_chunk_d", type=int, default=0)
     return parser

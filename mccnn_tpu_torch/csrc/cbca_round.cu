@@ -17,6 +17,10 @@
 // itself JAX's ops/cbca.py): centre, then +1, -1, +2, -2, ...; so the kernel
 // reproduces the plain round bit for bit. This is tighter than the TPU bf16
 // mode, whose DEFAULT-precision phase 2 rounds the horizontal sums to bf16.
+// With round_operand (cbca_fused(compute_dtype=bf16) on f32 storage, the
+// "fused16" mode) every volume value is rounded to bf16 as it is staged for
+// the horizontal sum; the sums and the scratch stay f32, and the rounding of
+// the horizontal sums is left out here too.
 // The round may run in place (vol_out == vol_in): pass 2 reads only the
 // scratch.
 //
@@ -27,7 +31,7 @@
 // (2 x 13 of every 32 columns or rows) mostly hit L2. A fused single pass
 // that keeps the horizontal sums in shared memory would drop the scratch's
 // 8 bytes per element; that is later work.
-#include "common.cuh"
+#include "cbca_arms.cuh"
 
 namespace {
 
@@ -40,7 +44,7 @@ __global__ void __launch_bounds__(kChunkD)
 cbca_horizontal_kernel(const T* __restrict__ vol, float* __restrict__ horiz,
                        const int* __restrict__ arm_left,
                        const int* __restrict__ arm_right, int width, int d_pad,
-                       int radius) {
+                       int radius, int round_operand) {
   __shared__ float s_win[(kTile + 2 * kHalo) * kChunkD];
   __shared__ int s_left[kTile];
   __shared__ int s_right[kTile];
@@ -53,7 +57,8 @@ cbca_horizontal_kernel(const T* __restrict__ vol, float* __restrict__ horiz,
   for (int x = 0; x < kTile + 2 * radius; ++x) {
     const int gx = w0 - radius + x;
     s_win[x * kChunkD + t] = (gx >= 0 && gx < width)
-        ? mccnn::to_f32(vol[(row + gx) * d_pad + d])
+        ? mccnn::as_operand(mccnn::to_f32(vol[(row + gx) * d_pad + d]),
+                            round_operand != 0)
         : 0.f;
   }
   if (t < kTile) {
@@ -131,11 +136,11 @@ template <typename T>
 void launch_round(const void* vol_in, float* horiz, void* vol_out,
                   const int* arm_l, const int* arm_r, const int* arm_u,
                   const int* arm_d, const float* inv, int height, int width,
-                  int d_pad, int radius, cudaStream_t s) {
+                  int d_pad, int radius, int round_operand, cudaStream_t s) {
   const dim3 grid1((width + kTile - 1) / kTile, height, d_pad / kChunkD);
   cbca_horizontal_kernel<T><<<grid1, kChunkD, 0, s>>>(
       static_cast<const T*>(vol_in), horiz, arm_l, arm_r, width, d_pad,
-      radius);
+      radius, round_operand);
   const dim3 grid2((height + kTile - 1) / kTile, width, d_pad / kChunkD);
   cbca_vertical_kernel<T><<<grid2, kChunkD, 0, s>>>(
       horiz, static_cast<T*>(vol_out), arm_u, arm_d, inv, height, width,
@@ -149,7 +154,7 @@ extern "C" int mccnn_cbca_round(const void* vol_in, void* horiz,
                                 const void* arm_right, const void* arm_up,
                                 const void* arm_down, const void* inv_region,
                                 int height, int width, int d_pad, int radius,
-                                int bf16, void* stream) {
+                                int bf16, int round_operand, void* stream) {
   if (radius < 0 || radius > kHalo || d_pad % kChunkD || height > 65535 ||
       width > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -163,10 +168,11 @@ extern "C" int mccnn_cbca_round(const void* vol_in, void* horiz,
   float* scratch = static_cast<float*>(horiz);
   if (bf16) {
     launch_round<__nv_bfloat16>(vol_in, scratch, vol_out, al, ar, au, ad, inv,
-                                height, width, d_pad, radius, s);
+                                height, width, d_pad, radius, round_operand,
+                                s);
   } else {
     launch_round<float>(vol_in, scratch, vol_out, al, ar, au, ad, inv, height,
-                        width, d_pad, radius, s);
+                        width, d_pad, radius, round_operand, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,11 @@
 // (H, W, D) for both orientations (vertical sweeps walk h, horizontal ones
 // walk w), so no transposes are needed. The next line is loaded before the
 // current one is computed, to keep a read in flight. The penalty planes are
-// (H, W) uint8 masks; no (H, W, D) penalty volume is built. In place
+// (H, W) uint8 masks; no (H, W, D) penalty volume is built. With a code
+// volume (the TPU kernel's own interface, sweep_pallas(volume, scale_u8):
+// uint8 0 / 1 / 2 for the scales 1, 1 / Q1, 1 / Q2, in the sweep-leading
+// (S, P, D) layout) the kernel reads one byte per element instead of
+// deriving the scale from the two planes; the result is the same. In place
 // (vol_out == vol_in) for the chained mode; out of place (the first line
 // copied) for the paper mode.
 //
@@ -93,18 +97,30 @@ __device__ __forceinline__ void store_line(__nv_bfloat16* p,
   }
 }
 
-template <typename T, int R>
+// R penalty codes of one lane, four to a 32-bit word
+template <int R>
+__device__ __forceinline__ void load_codes(const unsigned char* p,
+                                           unsigned (&c)[R / 4]) {
+#pragma unroll
+  for (int i = 0; i < R / 4; ++i) {
+    c[i] = *reinterpret_cast<const unsigned*>(p + 4 * i);
+  }
+}
+
+template <typename T, int R, bool kCodes>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 sgm_sweep_kernel(const T* vol_in, T* vol_out,
                  const unsigned char* __restrict__ small_self,
-                 const unsigned char* __restrict__ small_other, int height,
+                 const unsigned char* __restrict__ small_other,
+                 const unsigned char* __restrict__ codes, int height,
                  int width, int vertical, int forward, int left_volume,
                  int oor_lo, int oor_hi, float p1_base, float p2_base,
                  float inv_q1, float inv_q2) {
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int size = vertical ? height : width;
-  if (p >= (vertical ? width : height)) return;  // uniform per warp
+  const int perp = vertical ? width : height;
+  if (p >= perp) return;  // uniform per warp
   const int d_pad = 32 * R;
   const int step = forward ? 1 : -1;
 
@@ -120,17 +136,25 @@ sgm_sweep_kernel(const T* vol_in, T* vol_out,
 
   float cur[R];
   if (size > 1) load_line<R>(vol_in + pixel(s + step) * d_pad + lane * R, cur);
+  // the code volume is sweep-leading: line s, position p, lane d
+  auto codes_at = [&](int line) -> const unsigned char* {
+    return codes + (static_cast<size_t>(line) * perp + p) * d_pad + lane * R;
+  };
+  unsigned code[R / 4] = {};
+  if (kCodes && size > 1) load_codes<R>(codes_at(s + step), code);
 
   for (int n = 1; n < size; ++n) {
     s += step;
     const size_t pix = pixel(s);
     float next[R] = {};
+    unsigned code_next[R / 4] = {};
     if (n + 1 < size) {
       load_line<R>(vol_in + pixel(s + step) * d_pad + lane * R, next);
+      if (kCodes) load_codes<R>(codes_at(s + step), code_next);
     }
     const int w = vertical ? p : s;
     const size_t row = pix - w;  // h * width
-    const bool b1 = small_self[pix] != 0;
+    const bool b1 = kCodes ? false : small_self[pix] != 0;
 
     float min_prev = prev[0];
 #pragma unroll
@@ -145,11 +169,17 @@ sgm_sweep_kernel(const T* vol_in, T* vol_out,
     float out[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const int d = lane * R + i;
-      const int probe = left_volume ? w - d : w + d;
-      const bool oor = left_volume ? probe < oor_lo : probe >= oor_hi;
-      const bool b2 = oor || small_other[row + probe] != 0;
-      const float scale = (b1 && b2) ? 1.f : ((b1 || b2) ? inv_q1 : inv_q2);
+      float scale;
+      if (kCodes) {
+        const unsigned c = (code[i / 4] >> (8 * (i % 4))) & 0xffu;
+        scale = c == 0 ? 1.f : (c == 1 ? inv_q1 : inv_q2);
+      } else {
+        const int d = lane * R + i;
+        const int probe = left_volume ? w - d : w + d;
+        const bool oor = left_volume ? probe < oor_lo : probe >= oor_hi;
+        const bool b2 = oor || small_other[row + probe] != 0;
+        scale = (b1 && b2) ? 1.f : ((b1 || b2) ? inv_q1 : inv_q2);
+      }
       const float p1 = __fmul_rn(p1_base, scale);
       const float p2 = __fmul_rn(p2_base, scale);
       const float below =
@@ -167,44 +197,59 @@ sgm_sweep_kernel(const T* vol_in, T* vol_out,
       prev[i] = out[i];
       cur[i] = next[i];
     }
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) code[i] = code_next[i];
   }
 }
 
 template <typename T, int R>
 void launch_sweep(const void* vin, void* vout, const unsigned char* ss,
-                  const unsigned char* so, int height, int width, int vertical,
+                  const unsigned char* so, const unsigned char* codes,
+                  int height, int width, int vertical,
                   int forward, int left_volume, int oor_lo, int oor_hi,
                   float p1, float p2, float iq1, float iq2, cudaStream_t s) {
   const int fibres = vertical ? width : height;
   const int blocks = (fibres + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sgm_sweep_kernel<T, R><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-      static_cast<const T*>(vin), static_cast<T*>(vout), ss, so, height,
-      width, vertical, forward, left_volume, oor_lo, oor_hi, p1, p2, iq1,
-      iq2);
+  if (codes) {
+    sgm_sweep_kernel<T, R, true><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+        static_cast<const T*>(vin), static_cast<T*>(vout), ss, so, codes,
+        height, width, vertical, forward, left_volume, oor_lo, oor_hi, p1, p2,
+        iq1, iq2);
+  } else {
+    sgm_sweep_kernel<T, R, false><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+        static_cast<const T*>(vin), static_cast<T*>(vout), ss, so, codes,
+        height, width, vertical, forward, left_volume, oor_lo, oor_hi, p1, p2,
+        iq1, iq2);
+  }
 }
 
 template <typename T>
 int dispatch_depth(int d_pad, const void* vin, void* vout,
                    const unsigned char* ss, const unsigned char* so,
-                   int height, int width, int vertical, int forward,
-                   int left_volume, int oor_lo, int oor_hi, float p1, float p2,
+                   const unsigned char* codes, int height, int width,
+                   int vertical, int forward, int left_volume, int oor_lo,
+                   int oor_hi, float p1, float p2,
                    float iq1, float iq2, cudaStream_t s) {
   switch (d_pad) {
     case 128:
-      launch_sweep<T, 4>(vin, vout, ss, so, height, width, vertical, forward,
-                         left_volume, oor_lo, oor_hi, p1, p2, iq1, iq2, s);
+      launch_sweep<T, 4>(vin, vout, ss, so, codes, height, width,
+                         vertical, forward, left_volume, oor_lo, oor_hi,
+                         p1, p2, iq1, iq2, s);
       return 0;
     case 256:
-      launch_sweep<T, 8>(vin, vout, ss, so, height, width, vertical, forward,
-                         left_volume, oor_lo, oor_hi, p1, p2, iq1, iq2, s);
+      launch_sweep<T, 8>(vin, vout, ss, so, codes, height, width,
+                         vertical, forward, left_volume, oor_lo, oor_hi,
+                         p1, p2, iq1, iq2, s);
       return 0;
     case 384:
-      launch_sweep<T, 12>(vin, vout, ss, so, height, width, vertical, forward,
-                          left_volume, oor_lo, oor_hi, p1, p2, iq1, iq2, s);
+      launch_sweep<T, 12>(vin, vout, ss, so, codes, height, width,
+                         vertical, forward, left_volume, oor_lo, oor_hi,
+                         p1, p2, iq1, iq2, s);
       return 0;
     case 512:
-      launch_sweep<T, 16>(vin, vout, ss, so, height, width, vertical, forward,
-                          left_volume, oor_lo, oor_hi, p1, p2, iq1, iq2, s);
+      launch_sweep<T, 16>(vin, vout, ss, so, codes, height, width,
+                         vertical, forward, left_volume, oor_lo, oor_hi,
+                         p1, p2, iq1, iq2, s);
       return 0;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -215,21 +260,25 @@ int dispatch_depth(int d_pad, const void* vin, void* vout,
 
 extern "C" int mccnn_sgm_sweep(const void* vol_in, void* vol_out,
                                const void* small_self, const void* small_other,
-                               int height, int width, int d_pad, int vertical,
-                               int forward, int left_volume, int oor_lo,
+                               const void* codes, int height, int width,
+                               int d_pad, int vertical, int forward,
+                               int left_volume, int oor_lo,
                                int oor_hi, float p1_base, float p2_base,
                                float inv_q1, float inv_q2, int bf16,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ss = static_cast<const unsigned char*>(small_self);
   const auto* so = static_cast<const unsigned char*>(small_other);
+  const auto* cd = static_cast<const unsigned char*>(codes);
   const int rc = bf16
-      ? dispatch_depth<__nv_bfloat16>(d_pad, vol_in, vol_out, ss, so, height,
-                                      width, vertical, forward, left_volume,
+      ? dispatch_depth<__nv_bfloat16>(d_pad, vol_in, vol_out, ss, so, cd,
+                                      height, width, vertical, forward,
+                                      left_volume,
                                       oor_lo, oor_hi, p1_base, p2_base, inv_q1,
                                       inv_q2, s)
-      : dispatch_depth<float>(d_pad, vol_in, vol_out, ss, so, height, width,
-                              vertical, forward, left_volume, oor_lo, oor_hi,
+      : dispatch_depth<float>(d_pad, vol_in, vol_out, ss, so, cd, height,
+                              width, vertical, forward, left_volume, oor_lo,
+                              oor_hi,
                               p1_base, p2_base, inv_q1, inv_q2, s);
   if (rc) return rc;
   return static_cast<int>(cudaGetLastError());

@@ -43,18 +43,25 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p (a plain int would
 # be cut to 32 bits), every return a cudaError_t as int
 _SIGNATURES = {
     "mccnn_band_side": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mccnn_band_pair": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mccnn_band_scores": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mccnn_cbca_round": (_P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _P),
+                         _I, _I, _I, _I, _I, _I, _P),
     "mccnn_cbca_stencil_round": (_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _P),
     "mccnn_cbca_round_int8": (_P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _P),
-    "mccnn_sgm_sweep": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "mccnn_cbca_rolling_round": (_P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _P),
+    "mccnn_cbca_two_rounds": (_P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _P),
+    "mccnn_cbca_stream": (_P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _P),
+    "mccnn_sgm_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _F, _F, _I, _P),
 }
 
@@ -63,7 +70,8 @@ class LaunchCounts:
     """Launches per kernel; each wrapper adds one where it launches."""
 
     NAMES = ("band_side", "cbca_round", "sgm_sweep", "cbca_round_int8",
-             "band_pair", "cbca_stencil_round")
+             "band_pair", "cbca_stencil_round", "band_scores",
+             "cbca_rolling_round", "cbca_two_rounds", "cbca_stream")
 
     def __init__(self):
         self.counts = dict.fromkeys(self.NAMES, 0)

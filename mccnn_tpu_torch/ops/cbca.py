@@ -98,10 +98,22 @@ def inverse_region_size(arms: CrossArms,
 
 
 def cbca_round(volume: torch.Tensor, arms: CrossArms,
-               inv_region: torch.Tensor,
-               distance_threshold: int) -> torch.Tensor:
-    """One aggregation round: f32 sums, result in the storage dtype."""
-    horiz = _arm_stencil_sum(volume.float(), arms.left, arms.right, 1,
+               inv_region: torch.Tensor, distance_threshold: int,
+               compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One aggregation round: f32 sums, result in the storage dtype.
+
+    ``compute_dtype=torch.bfloat16`` rounds every volume value to bf16
+    before the horizontal sum (the JAX kernels' bf16-multiply mode on f32
+    storage; a no-op on a bf16 volume); all sums stay f32.
+    """
+    if compute_dtype == torch.bfloat16:
+        operand = volume.to(torch.bfloat16).float()
+    elif compute_dtype in (None, torch.float32):
+        operand = volume.float()
+    else:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{compute_dtype}")
+    horiz = _arm_stencil_sum(operand, arms.left, arms.right, 1,
                              distance_threshold)
     aggregated = _arm_stencil_sum(horiz, arms.up, arms.down, 0,
                                   distance_threshold)
@@ -109,11 +121,13 @@ def cbca_round(volume: torch.Tensor, arms: CrossArms,
 
 
 def cbca(volume: torch.Tensor, arms: CrossArms, num_iterations: int,
-         distance_threshold: int = 14) -> torch.Tensor:
+         distance_threshold: int = 14,
+         compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Aggregate an (H, W, D) cost volume over cross support regions."""
     if num_iterations == 0:
         return volume
     inv_region = inverse_region_size(arms, distance_threshold)
     for _ in range(num_iterations):
-        volume = cbca_round(volume, arms, inv_region, distance_threshold)
+        volume = cbca_round(volume, arms, inv_region, distance_threshold,
+                            compute_dtype)
     return volume

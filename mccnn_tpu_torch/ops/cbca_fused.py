@@ -10,6 +10,13 @@ in its DEFAULT-precision vertical phase.
 On CUDA the rounds update a copy of the input in place, with one f32
 scratch volume for the horizontal sums.
 
+``cbca_fused(..., compute_dtype=torch.bfloat16)`` on an f32 volume is the
+mixed mode ("fused16"): f32 storage between rounds, every volume value
+rounded to bf16 before the horizontal sum, all sums f32; a flag of K2 and of
+the plain round. The TPU kernel's DEFAULT-precision vertical phase also
+rounds the horizontal sums to bf16 in this mode; the port leaves that out,
+here as in bf16 storage.
+
 ``cbca_fused(..., int8_storage=True)`` is the int8 memory mode ("fused8"):
 the volume is quantized once per call (``_quantize_int8``: one symmetric
 scale from the non-BIG values, BIG lanes pinned to 127), every round is
@@ -37,7 +44,12 @@ from mccnn_tpu_torch.ops.cbca import (
     cbca_round,
     inverse_region_size,
 )
-from mccnn_tpu_torch.ops.cbca_rounds import check_round_operands, run_rounds
+from mccnn_tpu_torch.ops.cbca_rounds import (
+    check_round_operands,
+    compute_flag,
+    launch_round,
+    run_rounds,
+)
 from mccnn_tpu_torch.ops.common import BIG_COST
 
 _BIG_CUTOFF = 1e8  # values at or above this are BIG_COST pad sentinels
@@ -46,8 +58,12 @@ _INT8_LANES = 32  # disparities per K4 block: D must be a multiple
 
 def cbca_round_cuda(vol_in: torch.Tensor, scratch: torch.Tensor,
                     vol_out: torch.Tensor, arms: CrossArms,
-                    inv_region: torch.Tensor, distance_threshold: int) -> None:
-    """Launch one K2 round: vol_out <- round(vol_in) (may alias vol_in)."""
+                    inv_region: torch.Tensor, distance_threshold: int,
+                    compute_dtype: torch.dtype | None = None) -> None:
+    """Launch one K2 round: vol_out <- round(vol_in) (may alias vol_in).
+
+    ``compute_dtype=torch.bfloat16`` on f32 storage rounds each value to
+    bf16 as the horizontal pass stages it."""
     radius = check_round_operands(vol_in, vol_out, arms, inv_region,
                                   distance_threshold,
                                   (torch.float32, torch.bfloat16), 128,
@@ -61,7 +77,8 @@ def cbca_round_cuda(vol_in: torch.Tensor, scratch: torch.Tensor,
         vol_in.data_ptr(), scratch.data_ptr(), vol_out.data_ptr(),
         arms.left.data_ptr(), arms.right.data_ptr(), arms.up.data_ptr(),
         arms.down.data_ptr(), inv_region.data_ptr(), height, width, d_pad,
-        radius, int(vol_in.dtype == torch.bfloat16), stream_handle(vol_in),
+        radius, int(vol_in.dtype == torch.bfloat16),
+        compute_flag(vol_in, compute_dtype), stream_handle(vol_in),
     )
     check(code, "cbca_round")
     LAUNCHES.add("cbca_round")
@@ -127,18 +144,9 @@ def cbca_round_int8_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
                          arms: CrossArms, inv_region: torch.Tensor,
                          distance_threshold: int) -> None:
     """Launch one K4 round: vol_out <- round(vol_in), out of place."""
-    radius = check_round_operands(vol_in, vol_out, arms, inv_region,
-                                  distance_threshold, (torch.int8,),
-                                  _INT8_LANES)
-    height, width, depth = vol_in.shape
-    code = library().mccnn_cbca_round_int8(
-        vol_in.data_ptr(), vol_out.data_ptr(), arms.left.data_ptr(),
-        arms.right.data_ptr(), arms.up.data_ptr(), arms.down.data_ptr(),
-        inv_region.data_ptr(), height, width, depth, radius,
-        stream_handle(vol_in),
-    )
-    check(code, "cbca_round_int8")
-    LAUNCHES.add("cbca_round_int8")
+    launch_round("mccnn_cbca_round_int8", "cbca_round_int8", vol_in, vol_out,
+                 arms, inv_region, distance_threshold, (torch.int8,),
+                 _INT8_LANES)
 
 
 def _cbca_fused_int8(volume: torch.Tensor, arms: CrossArms,
@@ -155,18 +163,22 @@ def _cbca_fused_int8(volume: torch.Tensor, arms: CrossArms,
 
 
 def cbca_fused(volume: torch.Tensor, arms: CrossArms, num_iterations: int,
-               distance_threshold: int = 14,
-               int8_storage: bool = False) -> torch.Tensor:
+               distance_threshold: int = 14, int8_storage: bool = False,
+               compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Drop-in for ``ops.cbca.cbca`` (f32 and bf16 volumes).
 
     ``int8_storage=True`` runs the rounds in int8 (K4); an int8 volume is
     then taken as pre-quantized and returned as int8.
+    ``compute_dtype=torch.bfloat16`` rounds the volume values to bf16 before
+    each round's horizontal sum (f32 sums and storage; the module docstring
+    says what of the TPU mode is left out).
     """
     if int8_storage:
         return _cbca_fused_int8(volume, arms, num_iterations,
                                 distance_threshold)
     if num_iterations == 0 or volume.device.type == "cpu":
-        return cbca(volume, arms, num_iterations, distance_threshold)
+        return cbca(volume, arms, num_iterations, distance_threshold,
+                    compute_dtype)
     inv_region = inverse_region_size(arms, distance_threshold)
     out = volume.clone()
     scratch = torch.empty(volume.shape, dtype=torch.float32,
@@ -175,5 +187,5 @@ def cbca_fused(volume: torch.Tensor, arms: CrossArms, num_iterations: int,
     inv_region = inv_region.contiguous()
     for _ in range(num_iterations):
         cbca_round_cuda(out, scratch, out, arms, inv_region,
-                        distance_threshold)
+                        distance_threshold, compute_dtype)
     return out

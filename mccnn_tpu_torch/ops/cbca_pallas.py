@@ -16,14 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from mccnn_tpu_torch.kernels.build import (
-    LAUNCHES,
-    check,
-    library,
-    stream_handle,
-)
 from mccnn_tpu_torch.ops.cbca import CrossArms, cbca
-from mccnn_tpu_torch.ops.cbca_rounds import check_round_operands, run_rounds
+from mccnn_tpu_torch.ops.cbca_rounds import launch_round, run_rounds
 
 _LANES = 8  # disparities per block: D must be a multiple
 
@@ -32,17 +26,9 @@ def cbca_stencil_round_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
                             arms: CrossArms, inv_region: torch.Tensor,
                             distance_threshold: int) -> None:
     """Launch one K7 round: vol_out <- round(vol_in), out of place."""
-    radius = check_round_operands(vol_in, vol_out, arms, inv_region,
-                                  distance_threshold, (torch.float32,), _LANES)
-    height, width, depth = vol_in.shape
-    code = library().mccnn_cbca_stencil_round(
-        vol_in.data_ptr(), vol_out.data_ptr(), arms.left.data_ptr(),
-        arms.right.data_ptr(), arms.up.data_ptr(), arms.down.data_ptr(),
-        inv_region.data_ptr(), height, width, depth, radius,
-        stream_handle(vol_in),
-    )
-    check(code, "cbca_stencil_round")
-    LAUNCHES.add("cbca_stencil_round")
+    launch_round("mccnn_cbca_stencil_round", "cbca_stencil_round", vol_in,
+                 vol_out, arms, inv_region, distance_threshold,
+                 (torch.float32,), _LANES)
 
 
 def cbca_pallas(volume: torch.Tensor, arms: CrossArms, num_iterations: int,

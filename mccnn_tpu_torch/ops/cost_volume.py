@@ -17,6 +17,14 @@ launch the kernel, on a CPU tensor they run ``band_side_plain`` /
 (the JAX pipeline casts them too); products of bf16 values are exact in
 f32, and the correlation accumulates in f32 either way.
 
+``band_pair_pallas`` is the counterpart of the JAX package's function of
+that name (mccnn_tpu/ops/cost_volume_pallas.py): with ``use_mxu=True`` it
+routes to K1 / K5; with ``use_mxu=False`` it runs kernel K6
+(``csrc/band_vpu.cu``, replacing ``_band_kernel``, the bitwise-f32 path) and
+returns both raw score bands: no negation, no ``BIG_COST`` lanes, 0 where
+the match falls outside the image. On f32 descriptors K6 accumulates with
+K5's fmaf chain, so ``-K6 == K5(ndisp=d_pad)`` bit for bit.
+
 ``cost_volume_pair(method=...)``: "auto" and "pallas" run the kernels (K1
 for one side, K5 for both); "matmul" and "rolldot" are the JAX package's
 XLA paths as torch ops, on any device: ``_scores_matmul`` (the plain band's
@@ -149,6 +157,106 @@ def band_pair(features_left: torch.Tensor, features_right: torch.Tensor,
     check(code, "band_pair")
     LAUNCHES.add("band_pair")
     return left, right
+
+
+def band_pair_scores_plain(features_left: torch.Tensor,
+                           features_right: torch.Tensor, d_pad: int,
+                           out_dtype: torch.dtype = torch.float32):
+    """Both raw score bands, (left, right): f32 correlations, 0 where the
+    match falls outside the image, cast to ``out_dtype`` (K6's plain
+    version)."""
+    width = features_left.shape[1]
+    cols = torch.arange(width, device=features_left.device)[:, None]
+    disps = torch.arange(d_pad, device=features_left.device)[None, :]
+    left = torch.where(
+        cols >= disps,
+        _scores_matmul(features_left, features_right, d_pad, "left"), 0.0)
+    right = torch.where(
+        cols + disps < width,
+        _scores_matmul(features_right, features_left, d_pad, "right"), 0.0)
+    return left.to(out_dtype), right.to(out_dtype)
+
+
+def band_pair_scores(features_left: torch.Tensor,
+                     features_right: torch.Tensor, d_pad: int,
+                     out_dtype: torch.dtype = torch.float32):
+    """K6 wrapper: one launch writes both raw score bands on CUDA;
+    ``band_pair_scores_plain`` on the CPU. Returns (left, right).
+
+    The kernel multiplies f32 descriptors (any other type is cast up) and
+    takes any depth; ``out_dtype`` is float32 or bfloat16.
+    """
+    if out_dtype not in _STORAGE:
+        raise ValueError(f"unsupported band dtype {out_dtype}")
+    if features_left.device.type == "cpu":
+        return band_pair_scores_plain(features_left, features_right, d_pad,
+                                      out_dtype)
+    features_left = features_left.float().contiguous()
+    features_right = features_right.float().contiguous()
+    require_cuda("left features", features_left, (torch.float32,))
+    require_cuda("right features", features_right, (torch.float32,))
+    height, width, channels = features_left.shape
+    if (features_right.shape != features_left.shape or channels != 64
+            or d_pad < 1):
+        raise ValueError(
+            f"band kernel takes two (H, W, 64) fields and D_pad >= 1; got "
+            f"{tuple(features_left.shape)}, {tuple(features_right.shape)}, "
+            f"D_pad {d_pad}")
+    left = torch.empty((height, width, d_pad), dtype=out_dtype,
+                       device=features_left.device)
+    right = torch.empty_like(left)
+    code = library().mccnn_band_scores(
+        features_left.data_ptr(), features_right.data_ptr(), left.data_ptr(),
+        right.data_ptr(), height, width, channels, d_pad,
+        int(out_dtype == torch.bfloat16), stream_handle(features_left),
+    )
+    check(code, "band_scores")
+    LAUNCHES.add("band_scores")
+    return left, right
+
+
+def band_pair_pallas(features_left: torch.Tensor,
+                     features_right: torch.Tensor, d_pad: int,
+                     use_mxu: bool = True, sides: str = "both",
+                     out_dtype: torch.dtype | None = None,
+                     finalize_ndisp: int | None = None):
+    """(H, W, 64) feature pair -> score bands (H, W, d_pad), no border
+    fills; the port of ``cost_volume_pallas.band_pair_pallas``.
+
+    ``use_mxu=True`` runs K1 (``sides`` "left" / "right") or K5 ("both");
+    ``use_mxu=False`` runs K6, both sides only. With ``finalize_ndisp`` the
+    bands come out as pipeline cost volumes (negated, ``BIG_COST`` on the
+    lanes d >= ndisp; K1 / K5 only); without it as raw scores. K1 and K5
+    write finalized bands, so their raw scores are the negated finalized
+    bands of ``ndisp = d_pad``, which is exact. ``out_dtype`` defaults to
+    the features' dtype.
+    """
+    if finalize_ndisp is not None and not use_mxu:
+        raise ValueError("finalize_ndisp requires the MXU kernels")
+    if sides not in ("left", "right", "both"):
+        raise ValueError(
+            f"sides must be 'left', 'right' or 'both', got {sides!r}")
+    out_dtype = out_dtype or features_left.dtype
+    if not use_mxu:
+        if sides != "both":
+            raise ValueError("single-side bands require the MXU kernel")
+        return band_pair_scores(features_left, features_right, d_pad,
+                                out_dtype)
+    ndisp = d_pad if finalize_ndisp is None else finalize_ndisp
+    features_left = features_left.to(out_dtype)
+    features_right = features_right.to(out_dtype)
+    if sides == "both":
+        bands = band_pair(features_left, features_right, ndisp, d_pad,
+                          out_dtype)
+    elif sides == "left":
+        bands = (band_side(features_left, features_right, ndisp, d_pad,
+                           "left", out_dtype),)
+    else:
+        bands = (band_side(features_right, features_left, ndisp, d_pad,
+                           "right", out_dtype),)
+    if finalize_ndisp is None:
+        bands = tuple(-band for band in bands)
+    return bands if sides == "both" else bands[0]
 
 
 def _left_scores_rolldot(features_left: torch.Tensor,

@@ -23,6 +23,15 @@ on a CPU tensor it runs ``sweep_plain``, a Python loop over lines. Both
 carry the previous line in f32, store each line in the volume dtype, and
 add as JAX does: ``(cur + candidate) - min_prev``; pad lanes stay
 >= 1e8 (one f32 ulp at 1e9 is 64).
+
+``MatchConfig.sgm_u8`` (mccnn_tpu/ops/sgm_pallas.py::penalty_scale_u8 and
+the TPU kernel's own interface, ``sweep_pallas(volume, scale_u8, ...)``):
+the penalty scale of every element is precomputed per direction as a uint8
+code volume (0, 1, 2 for 1, 1/Q1, 1/Q2) in the sweep-leading (S, P, D)
+layout, and the sweep reads one byte per element instead of deriving the
+scale from the two gradient planes. The predicate is the same, so the swept
+volume is the same bit for bit. A code volume is as large as an int8 cost
+volume; it is built and freed per direction.
 """
 
 from __future__ import annotations
@@ -90,6 +99,27 @@ def _b2_line(small_other: torch.Tensor, index: torch.Tensor,
     return oor[line][None, :] | small_other[:, index[line]]
 
 
+def penalty_scale_u8(left_image: torch.Tensor, right_image: torch.Tensor,
+                     choice: str, direction: Tuple[int, int], d_pad: int,
+                     sgm_d: float) -> torch.Tensor:
+    """(S, P, D) uint8 penalty codes of one sweep direction: 0 where both
+    gradient tests are small, 2 where neither is, 1 otherwise; the
+    predicate of ``sweep_plain`` and of K3 (an out-of-range D2 probe counts
+    as small). Vertical sweeps give (H, W, D), horizontal ones (W, H, D),
+    the sweep axis leading.
+    """
+    rh, rw = direction
+    width = left_image.shape[1]
+    small_d1, small_other = _penalty_bits(left_image, right_image, choice,
+                                          direction, sgm_d)
+    index, oor = _probe(width, d_pad, choice, rw, left_image.device)
+    b2 = oor | small_other[:, index]  # (H, W, D)
+    codes = (~small_d1)[:, :, None].to(torch.uint8) + (~b2).to(torch.uint8)
+    if rh == 0:
+        codes = codes.transpose(0, 1)
+    return codes.contiguous()
+
+
 def _sweep_params(direction, config: MatchConfig):
     rh, rw = direction
     vertical = rh != 0
@@ -101,15 +131,21 @@ def _sweep_params(direction, config: MatchConfig):
 def sweep_plain(vol_in: torch.Tensor, vol_out: torch.Tensor,
                 left_image: torch.Tensor, right_image: torch.Tensor,
                 choice: str, direction: Tuple[int, int],
-                config: MatchConfig) -> None:
-    """One DP sweep of vol_in into vol_out (may alias vol_in), line by line."""
+                config: MatchConfig,
+                codes: torch.Tensor | None = None) -> None:
+    """One DP sweep of vol_in into vol_out (may alias vol_in), line by line.
+
+    With ``codes`` (``penalty_scale_u8`` of this direction) the scale of a
+    line is decoded from its codes instead of the gradient planes."""
     vertical, forward, p1_base, p2_base = _sweep_params(direction, config)
     inv_q1 = 1.0 / config.sgm_q1
     inv_q2 = 1.0 / config.sgm_q2
     height, width, d_pad = vol_in.shape
-    small_d1, small_other = _penalty_bits(left_image, right_image, choice,
-                                          direction, config.sgm_d)
-    index, oor = _probe(width, d_pad, choice, direction[1], vol_in.device)
+    if codes is None:
+        small_d1, small_other = _penalty_bits(left_image, right_image,
+                                              choice, direction, config.sgm_d)
+        index, oor = _probe(width, d_pad, choice, direction[1],
+                            vol_in.device)
     # lines are rows (vertical) or columns (horizontal): views, no copies
     src = vol_in if vertical else vol_in.transpose(0, 1)
     dst = vol_out if vertical else vol_out.transpose(0, 1)
@@ -123,10 +159,14 @@ def sweep_plain(vol_in: torch.Tensor, vol_out: torch.Tensor,
     if vol_out.data_ptr() != vol_in.data_ptr():
         dst[first] = src[first]
     for s in order[1:]:
-        b1 = (small_d1[s] if vertical else small_d1[:, s])[:, None]
-        b2 = _b2_line(small_other, index, oor, vertical, s)
-        scale = torch.where(b1 & b2, 1.0,
-                            torch.where(b1 | b2, inv_q1, inv_q2))
+        if codes is None:
+            b1 = (small_d1[s] if vertical else small_d1[:, s])[:, None]
+            b2 = _b2_line(small_other, index, oor, vertical, s)
+            scale = torch.where(b1 & b2, 1.0,
+                                torch.where(b1 | b2, inv_q1, inv_q2))
+        else:
+            scale = torch.where(codes[s] == 0, 1.0,
+                                torch.where(codes[s] == 1, inv_q1, inv_q2))
         p1 = p1_base * scale
         p2 = p2_base * scale
         cur = src[s].float()
@@ -143,8 +183,11 @@ def sweep_plain(vol_in: torch.Tensor, vol_out: torch.Tensor,
 def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
                left_image: torch.Tensor, right_image: torch.Tensor,
                choice: str, direction: Tuple[int, int],
-               config: MatchConfig) -> None:
-    """Launch K3 for one sweep of vol_in into vol_out (may alias vol_in)."""
+               config: MatchConfig,
+               codes: torch.Tensor | None = None) -> None:
+    """Launch K3 for one sweep of vol_in into vol_out (may alias vol_in);
+    with ``codes`` the kernel reads the penalty codes, else it derives the
+    penalties from the images' gradient planes."""
     require_cuda("volume", vol_in, (torch.float32, torch.bfloat16))
     require_cuda("output volume", vol_out, (vol_in.dtype,))
     height, width, d_pad = vol_in.shape
@@ -155,14 +198,24 @@ def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
     if left_image.shape != (height, width):
         raise ValueError("images and volume disagree in (H, W)")
     vertical, forward, p1_base, p2_base = _sweep_params(direction, config)
-    small_d1, small_other = _penalty_bits(left_image, right_image, choice,
-                                          direction, config.sgm_d)
-    small_d1 = small_d1.to(torch.uint8).contiguous()
-    small_other = small_other.to(torch.uint8).contiguous()
+    if codes is None:
+        small_d1, small_other = _penalty_bits(left_image, right_image,
+                                              choice, direction, config.sgm_d)
+        small_d1 = small_d1.to(torch.uint8).contiguous()
+        small_other = small_other.to(torch.uint8).contiguous()
+        planes = (small_d1.data_ptr(), small_other.data_ptr(), None)
+    else:
+        require_cuda("penalty codes", codes, (torch.uint8,))
+        lines = (height, width) if vertical else (width, height)
+        if codes.shape != (*lines, d_pad):
+            raise ValueError(
+                f"penalty codes must be sweep-leading {(*lines, d_pad)}, "
+                f"got {tuple(codes.shape)}")
+        planes = (None, None, codes.data_ptr())
     rw = direction[1]
     code = library().mccnn_sgm_sweep(
-        vol_in.data_ptr(), vol_out.data_ptr(), small_d1.data_ptr(),
-        small_other.data_ptr(), height, width, d_pad, int(vertical),
+        vol_in.data_ptr(), vol_out.data_ptr(), *planes, height, width,
+        d_pad, int(vertical),
         int(forward), int(choice == "L"), max(0, rw), width + min(0, rw),
         p1_base, p2_base, 1.0 / config.sgm_q1, 1.0 / config.sgm_q2,
         int(vol_in.dtype == torch.bfloat16), stream_handle(vol_in),
@@ -173,9 +226,16 @@ def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
 
 def sweep(vol_in, vol_out, left_image, right_image, choice, direction,
           config: MatchConfig) -> None:
-    """K3 wrapper: kernel on CUDA, ``sweep_plain`` on the CPU."""
+    """K3 wrapper: kernel on CUDA, ``sweep_plain`` on the CPU. With
+    ``config.sgm_u8`` the direction's code volume is built first and freed
+    on return."""
+    codes = None
+    if config.sgm_u8:
+        codes = penalty_scale_u8(left_image, right_image, choice, direction,
+                                 vol_in.shape[2], config.sgm_d)
     fn = sweep_plain if vol_in.device.type == "cpu" else sweep_cuda
-    fn(vol_in, vol_out, left_image, right_image, choice, direction, config)
+    fn(vol_in, vol_out, left_image, right_image, choice, direction, config,
+       codes)
 
 
 def _sgm_one_volume(volume: torch.Tensor, left_image: torch.Tensor,

@@ -12,10 +12,16 @@ ten separately timed steps with both volumes live.
 
 On a CUDA device the cost volume, CBCA rounds and SGM sweeps run the
 port's kernels (``csrc/``): K1 (one band side) or K5 (both sides, in
-``stage_times``), K2 (``cbca_impl`` "auto", "fused", "xla"), K7 ("pallas":
-exact f32, single pass), K4 ("fused8": int8 storage) and K3; on the CPU
-they run their plain versions. Nothing selects the plain versions for a
-CUDA tensor.
+``stage_times``), K3 (with ``MatchConfig.sgm_u8`` on precomputed penalty
+codes) and, by ``cbca_impl``: K2 ("auto", "fused", "xla"; "fused16" with
+bf16-rounded operands), K7 ("pallas": exact f32, single pass), K4
+("fused8": int8 storage), K8 ("rolling", "rolling16": rows rolled through a
+ring) and K9 ("fused2", "fused2_16": two rounds per pass; an odd round on
+K2). "mxu" (banded 0/1 matrix products, ``ops/cbca_mxu.py``) and
+``MatchConfig.cbca_joint_regions`` (``ops/cbca_joint.py``) are torch ops on
+any device, as they are plain XLA in the JAX package. On the CPU every
+kernel's wrapper runs its plain version; nothing selects a plain version
+for a CUDA tensor.
 
 f32 convolutions and matrix products must not run in TF32 on the card
 (cuDNN allows it by default), so ``match_pair`` switches TF32 off for
@@ -37,7 +43,11 @@ from mccnn_tpu_torch.models.net import (
 )
 from mccnn_tpu_torch.ops.cbca import compute_arms
 from mccnn_tpu_torch.ops.cbca_fused import cbca_fused
+from mccnn_tpu_torch.ops.cbca_fused2 import cbca_fused_two
+from mccnn_tpu_torch.ops.cbca_joint import cbca_joint
+from mccnn_tpu_torch.ops.cbca_mxu import build_masks, cbca_mxu
 from mccnn_tpu_torch.ops.cbca_pallas import cbca_pallas
+from mccnn_tpu_torch.ops.cbca_rolling import cbca_fused_rolling
 from mccnn_tpu_torch.ops.cost_volume import cost_volume_pair
 from mccnn_tpu_torch.ops.filters import bilateral_filter, median_filter
 from mccnn_tpu_torch.ops.lr_check import lr_consistency_interpolate
@@ -47,9 +57,9 @@ from mccnn_tpu_torch.ops.wta import wta_disparity
 from mccnn_tpu_torch.utils.config import MatchConfig
 
 _VOLUME_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# the JAX package's CBCA names that this port runs: "auto", "fused" and
-# "xla" aggregate with K2, "pallas" with K7, "fused8" with K4
-_CBCA_IMPLS = ("auto", "fused", "xla", "pallas", "fused8")
+# the JAX package's CBCA names; "auto" is K2's exact f32 sums ("xla")
+_CBCA_IMPLS = ("auto", "mxu", "fused", "fused16", "fused8", "fused2",
+               "fused2_16", "pallas", "xla", "rolling", "rolling16")
 _COST_VOLUME_METHODS = ("auto", "pallas", "matmul", "rolldot")
 STAGES = ("features", "cost_volume", "cbca_1", "sgm", "cbca_2", "wta",
           "lr_interpolation", "subpixel", "median", "bilateral")
@@ -57,35 +67,40 @@ STAGES = ("features", "cost_volume", "cbca_1", "sgm", "cbca_2", "wta",
 
 def _check_options(config: MatchConfig, volume_dtype: str, cbca_impl: str,
                    cost_volume_method: str = "auto") -> None:
-    """Raise for the JAX pipeline's options this port does not run yet."""
+    """Raise for option values that neither package knows or takes."""
     if volume_dtype not in _VOLUME_DTYPES:
         raise ValueError(f"volume_dtype must be one of {tuple(_VOLUME_DTYPES)}")
     if cbca_impl not in _CBCA_IMPLS:
         raise ValueError(
-            f"cbca_impl {cbca_impl!r} is not ported; use one of {_CBCA_IMPLS}")
-    if cbca_impl == "pallas" and volume_dtype != "float32":
-        raise ValueError("cbca_impl 'pallas' takes float32 volumes only")
+            f"unknown cbca_impl {cbca_impl!r}; use one of {_CBCA_IMPLS}")
+    if cbca_impl in ("pallas", "mxu") and volume_dtype != "float32":
+        raise ValueError(
+            f"cbca_impl {cbca_impl!r} takes float32 volumes only")
     if cost_volume_method not in _COST_VOLUME_METHODS:
         raise ValueError(
             f"unknown cost-volume method: {cost_volume_method!r}; use one of "
             f"{_COST_VOLUME_METHODS}")
-    if config.cbca_joint_regions:
-        raise ValueError("cbca_joint_regions is not ported yet")
-    if config.sgm_u8:
-        raise ValueError("sgm_u8 is not ported yet")
 
 
 def _cbca_aggregate(cbca_impl: str):
-    """A CBCA impl name -> ``fn(volume, arms, iterations, distance)``."""
-    if cbca_impl == "pallas":
-        return cbca_pallas
-    if cbca_impl == "fused8":
-        return functools.partial(cbca_fused, int8_storage=True)
-    return cbca_fused
+    """A CBCA impl name -> ``fn(volume, arms, iterations, distance)``
+    (mccnn_tpu/pipeline/match.py::_cbca_aggregate); "mxu" also takes
+    ``masks=``."""
+    bf16_operands = {"compute_dtype": torch.bfloat16}
+    return {
+        "pallas": cbca_pallas,
+        "mxu": cbca_mxu,
+        "fused16": functools.partial(cbca_fused, **bf16_operands),
+        "fused2": cbca_fused_two,
+        "fused2_16": functools.partial(cbca_fused_two, **bf16_operands),
+        "fused8": functools.partial(cbca_fused, int8_storage=True),
+        "rolling": cbca_fused_rolling,
+        "rolling16": functools.partial(cbca_fused_rolling, **bf16_operands),
+    }.get(cbca_impl, cbca_fused)
 
 
 def _run_cbca(aggregate, volume: torch.Tensor, arms, iterations: int,
-              distance: int, cbca_chunk_d: int) -> torch.Tensor:
+              distance: int, cbca_chunk_d: int, **kwargs) -> torch.Tensor:
     """Aggregate the whole volume, or slices of its disparity axis in turn.
 
     Aggregation is independent per disparity, so chunking caps the round
@@ -96,13 +111,13 @@ def _run_cbca(aggregate, volume: torch.Tensor, arms, iterations: int,
     """
     d_pad = volume.shape[2]
     if not cbca_chunk_d or d_pad <= cbca_chunk_d:
-        return aggregate(volume, arms, iterations, distance)
+        return aggregate(volume, arms, iterations, distance, **kwargs)
     if d_pad % cbca_chunk_d:
         raise ValueError("cbca_chunk_d must divide the padded depth")
     for start in range(0, d_pad, cbca_chunk_d):
         block = volume[:, :, start:start + cbca_chunk_d].contiguous()
         volume[:, :, start:start + cbca_chunk_d] = aggregate(
-            block, arms, iterations, distance)
+            block, arms, iterations, distance, **kwargs)
     return volume
 
 
@@ -158,9 +173,16 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
     are cast to bf16 for the band kernels; DP and aggregation math stay
     f32). ``cbca_impl`` "auto", "fused" and "xla" aggregate with
     ``cbca_fused`` (K2 on CUDA, which sums in f32 like JAX's exact "xla"
-    path), "pallas" with ``cbca_pallas`` (K7, f32 volumes only) and
-    "fused8" with int8 storage (K4); on the CPU each runs its plain
-    version. ``cbca_chunk_d`` aggregates the disparity axis in chunks of
+    path), "pallas" with ``cbca_pallas`` (K7, f32 volumes only), "fused8"
+    with int8 storage (K4), "rolling" with ``cbca_fused_rolling`` (K8),
+    "fused2" with ``cbca_fused_two`` (K9) and "mxu" with ``cbca_mxu``
+    (f32 volumes only; its masks are built once per volume); "fused16",
+    "rolling16" and "fused2_16" are the f32-storage modes that round the
+    rounds' operands to bf16. On the CPU each kernel runs its plain
+    version. ``config.cbca_joint_regions`` aggregates with ``cbca_joint``
+    over disparity-conditioned regions instead, whatever ``cbca_impl``
+    says, and ``config.sgm_u8`` feeds the sweeps precomputed penalty codes
+    (the same result). ``cbca_chunk_d`` aggregates the disparity axis in chunks of
     that many lanes. ``cost_volume_method`` "auto" and "pallas" build one
     volume at a time with K1, right first; "matmul" and "rolldot" build both
     with torch ops and process the left first. ``return_volumes=True``
@@ -185,14 +207,27 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
                     choice: str) -> torch.Tensor:
             """CBCA -> SGM -> CBCA for one volume."""
             arms = compute_arms(image, config.cbca_intensity, distance)
-            volume = _run_cbca(aggregate, volume, arms,
-                               config.cbca_num_iterations_1, distance,
-                               cbca_chunk_d)
+            if config.cbca_joint_regions:
+                other = right_image if choice == "L" else left_image
+                arms_other = compute_arms(other, config.cbca_intensity,
+                                          distance)
+
+                def run(volume, iterations):
+                    return cbca_joint(volume, arms, arms_other, iterations,
+                                      distance, ndisp, choice)
+            else:
+                # the "mxu" mask stacks serve both CBCA stages of a volume
+                kwargs = ({"masks": build_masks(arms)}
+                          if cbca_impl == "mxu" else {})
+
+                def run(volume, iterations):
+                    return _run_cbca(aggregate, volume, arms, iterations,
+                                     distance, cbca_chunk_d, **kwargs)
+
+            volume = run(volume, config.cbca_num_iterations_1)
             volume = _sgm_one_volume(volume, left_image, right_image, choice,
                                      ndisp, config)
-            return _run_cbca(aggregate, volume, arms,
-                             config.cbca_num_iterations_2, distance,
-                             cbca_chunk_d)
+            return run(volume, config.cbca_num_iterations_2)
 
         if band_kernels:
             right_volume = process(
@@ -240,6 +275,9 @@ def _build_staged(net: FeatureNet, config: MatchConfig, ndisp: int,
 
     The same operations as ``match_pair``, but both volumes are built in
     one step (kernel K5 with the band methods) and stay live side by side.
+    As in the JAX package, joint-region CBCA is not supported in this mode
+    (``config.cbca_joint_regions`` is not read) and "mxu" builds its masks
+    in every CBCA call.
     """
     vdtype = _VOLUME_DTYPES[volume_dtype]
     distance = int(config.cbca_distance)

@@ -61,8 +61,9 @@ class MatchConfig:
     # semantics-neutral); kept so configs stay interchangeable, unused by
     # the port, whose sweep is one kernel launch
     sgm_chunk: int = 0
-    # the JAX package's uint8 penalty-code knob (bit-identical predicate);
-    # the port rejects True until that option is ported
+    # precompute the SGM penalty scales as a uint8 code volume per
+    # direction (ops/sgm.py::penalty_scale_u8); the same predicate, so the
+    # same result bit for bit
     sgm_u8: bool = False
     # the paper's disparity-conditioned joint-region CBCA (present but
     # disabled in the reference, src/process_functional.py:122-144,661-729);

@@ -18,6 +18,7 @@ setup(
             "mccnn-train=mccnn_tpu.cli.train:main",
             "mccnn-match=mccnn_tpu.cli.match:main",
             "mccnn-match-torch=mccnn_tpu_torch.cli.match:main",
+            "mccnn-eval-torch=mccnn_tpu_torch.cli.eval:main",
         ]
     },
 )

@@ -147,17 +147,45 @@ def test_port_adds_only_the_device_flag():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--cbca_impl", "mxu"], ["--cbca_impl", "fused16"],
-    ["--cbca_impl", "fused2"], ["--cbca_impl", "fused2_16"],
-    ["--cbca_impl", "rolling"], ["--cbca_impl", "rolling16"],
-    ["--cbca_joint_regions"], ["--multihost"],
+    ["--multihost"],
     ["--cbca_impl", "pallas", "--volume_dtype", "bfloat16"],
+    ["--cbca_impl", "mxu", "--volume_dtype", "bfloat16"],
 ], ids=lambda extra: "-".join(extra).replace("--", ""))
 def test_unported_options_exit_with_value_error(scenes, extra):
+    """What still raises: ``--multihost``, and the two f32-only CBCA
+    backends on bf16 volumes (TF1 checkpoints: ``test_torch_net.py``)."""
     with pytest.raises(ValueError):
         port_cli.main(_argv(scenes, scenes / "refused",
                             extra=["--device", "cpu", *extra]))
     assert not (scenes / "refused").exists()
+
+
+@pytest.mark.parametrize("extra", [
+    ["--cbca_impl", "mxu"], ["--cbca_impl", "fused16"],
+    ["--cbca_impl", "fused2"], ["--cbca_impl", "fused2_16"],
+    ["--cbca_impl", "rolling"], ["--cbca_impl", "rolling16"],
+    ["--cbca_impl", "rolling", "--volume_dtype", "bfloat16"],
+    ["--cbca_joint_regions"],
+], ids=lambda extra: "-".join(extra).replace("--", ""))
+def test_variant_options_run(scenes, extra):
+    """Every CBCA backend name of the JAX CLI and the joint regions run
+    through the port's CLI; the exact-f32 ones give the default's map."""
+    tag = "-".join(extra).replace("--", "")
+    port_cli.main(_argv(scenes, scenes / tag, end=0,
+                        extra=["--device", "cpu", *extra]))
+    rel = "submit_t0/sceneA/disp0MCCNN.pfm"
+    got = read_pfm(str(scenes / tag / rel))
+    assert got.shape == (24, 40) and np.isfinite(got).all()
+    if not (scenes / "default").exists():
+        port_cli.main(_argv(scenes, scenes / "default", end=0,
+                            extra=["--device", "cpu"]))
+    want = read_pfm(str(scenes / "default" / rel))
+    if extra in (["--cbca_impl", "fused2"], ["--cbca_impl", "rolling"]):
+        np.testing.assert_array_equal(got, want)
+    elif "--cbca_joint_regions" not in extra:
+        # the reduced-precision budget, on the GT of 3 px everywhere
+        assert abs(np.mean(np.abs(got - 3.0) > 2.0)
+                   - np.mean(np.abs(want - 3.0) > 2.0)) <= 0.005
 
 
 def test_shape_mismatch_with_calib_raises(scenes, tmp_path):

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K5 and K7 against their plain versions.
+"""The port's CUDA kernels K1-K10 against their plain versions.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX (there, without the JAX-importing conftest):
@@ -36,15 +36,24 @@ from mccnn_tpu_torch.ops.cbca_fused import (  # noqa: E402
     cbca_round_cuda,
     cbca_round_int8_cuda,
 )
+from mccnn_tpu_torch.ops.cbca_fused2 import (  # noqa: E402
+    cbca_fused_two,
+    cbca_two_rounds_cuda,
+)
 from mccnn_tpu_torch.ops.cbca_pallas import (  # noqa: E402
     cbca_pallas,
     cbca_stencil_round_cuda,
+)
+from mccnn_tpu_torch.ops.cbca_rolling import (  # noqa: E402
+    cbca_fused_rolling,
+    cbca_rolling_round_cuda,
 )
 from mccnn_tpu_torch.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu_torch.pipeline.match import (  # noqa: E402
     MatchPipeline,
     match_pair,
 )
+from mccnn_tpu_torch.tools import bench_cbca_stream as stream  # noqa: E402
 from mccnn_tpu_torch.utils.config import MatchConfig  # noqa: E402
 
 from torch_parity import require_card, scene_pair, unit_features  # noqa: E402
@@ -92,6 +101,15 @@ def test_cpu_tensors_take_the_plain_versions():
     want = torch.empty_like(agg)
     tsgm.sweep_plain(agg, want, left, right, "L", (0, 1), MatchConfig())
     torch.testing.assert_close(out, want, rtol=0, atol=0)
+    for variant in (cbca_fused_rolling, cbca_fused_two):
+        torch.testing.assert_close(variant(band, arms, 3, DIST),
+                                   tcbca.cbca(band, arms, 3, DIST), rtol=0,
+                                   atol=0)
+    scores = tcv.band_pair_pallas(fl, fr, 128, use_mxu=False)
+    torch.testing.assert_close(scores[0][..., :NDISP], -band[..., :NDISP],
+                               rtol=0, atol=0)
+    copied = stream.cbca_stream(band, 2, 30, 128)
+    assert copied is not band and torch.equal(copied, band)
     assert build.LAUNCHES.snapshot() == dict.fromkeys(build.LAUNCHES.NAMES, 0)
 
 
@@ -110,6 +128,14 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     q = vol.to(torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
         cbca_round_int8_cuda(q, torch.empty_like(q), arms, inv, DIST)
+    with pytest.raises(ValueError, match="CUDA"):
+        cbca_rolling_round_cuda(vol, torch.empty_like(vol), arms, inv, DIST)
+    with pytest.raises(ValueError, match="CUDA"):
+        cbca_two_rounds_cuda(vol, torch.empty_like(vol), arms, inv, DIST)
+    codes = tsgm.penalty_scale_u8(left, right, "L", (1, 0), 128, 0.08)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsgm.sweep_cuda(vol, vol, left, right, "L", (1, 0), MatchConfig(),
+                        codes)
 
 
 def _launched():
@@ -130,8 +156,10 @@ def test_library_name_follows_the_sources():
     assert path.name.startswith("libmccnn_kernels_")
     assert path == build.library_path()  # stable for unchanged sources
     assert {p.name for p in build.SOURCE_DIR.glob("*.cu")} == {
-        "band.cu", "band_pair.cu", "cbca_round.cu", "cbca_round_int8.cu",
-        "cbca_stencil.cu", "sgm_sweep.cu"}
+        "band.cu", "band_pair.cu", "band_vpu.cu", "cbca_rolling.cu",
+        "cbca_round.cu", "cbca_round_int8.cu", "cbca_stencil.cu",
+        "cbca_stream.cu", "cbca_two_round.cu", "sgm_sweep.cu"}
+    assert len(build.LAUNCHES.NAMES) == 10
 
 
 @pytest.mark.cuda
@@ -386,3 +414,200 @@ def test_single_pass_cbca_kernels_at_other_radii(distance):
         cbca_int8_plain(vol, arms, 2, distance), rtol=0, atol=0)
     with pytest.raises(ValueError, match="halo"):
         cbca_pallas(vol, arms, 1, 18)
+
+
+_MODES = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
+          "mixed": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("shape", [(70, 150, 256, 200), (300, 40, 128, 16),
+                                   (40, 30, 128, 5), (1, 1, 16, 1)])
+def test_rolling_and_two_round_kernels_equal_k2(shape, mode):
+    """K8 and K9 against the plain rounds and, where K2 takes the depth,
+    against K2: bit-equal in f32, bf16 storage and the bf16-operand mode,
+    for even and odd round counts, on narrow and one-pixel images too (no
+    fallback), over more rows than one band holds."""
+    device = require_card()
+    dtype, compute = _MODES[mode]
+    height, width, d_pad, ndisp = shape
+    left, _ = _images(max(height, 48), max(width, 64))
+    arms = tcbca.compute_arms(left[:height, :width].to(device), TAU, DIST)
+    vol = _volume(np.random.default_rng(11), height, width, d_pad,
+                  ndisp).to(device, dtype)
+    keep = vol.clone()
+    for iterations in (2, 3):
+        want = tcbca.cbca(vol, arms, iterations, DIST, compute)
+        build.LAUNCHES.reset()
+        got = cbca_fused_rolling(vol, arms, iterations, DIST,
+                                 compute_dtype=compute)
+        assert _launched() == {"cbca_rolling_round": iterations}
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if iterations % 2 and d_pad % 128:
+            continue  # the odd round runs on K2, which takes D % 128 == 0
+        build.LAUNCHES.reset()
+        got = cbca_fused_two(vol, arms, iterations, DIST,
+                             compute_dtype=compute)
+        odd = {"cbca_round": 1} if iterations % 2 else {}
+        assert _launched() == {"cbca_two_rounds": iterations // 2, **odd}
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if d_pad % 128 == 0:
+            torch.testing.assert_close(
+                got, cbca_fused(vol, arms, iterations, DIST,
+                                compute_dtype=compute), rtol=0, atol=0)
+    torch.testing.assert_close(vol, keep, rtol=0, atol=0)  # input untouched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distance", [1, 3, 17])
+def test_rolling_kernels_at_other_radii(distance):
+    """K8 and K9 size their rings by the radius: 0, 2 and the largest they
+    take, 16; 18 is refused."""
+    device = require_card()
+    left, _ = _images(70, 150)
+    arms = tcbca.compute_arms(left.to(device), TAU, distance)
+    vol = _volume(np.random.default_rng(12), 70, 150, 128, 70).to(device)
+    want = tcbca.cbca(vol, arms, 2, distance)
+    for variant in (cbca_fused_rolling, cbca_fused_two):
+        torch.testing.assert_close(variant(vol, arms, 2, distance), want,
+                                   rtol=0, atol=0)
+        with pytest.raises(ValueError, match="halo"):
+            variant(vol, arms, 2, 18)
+
+
+@pytest.mark.cuda
+def test_fused16_flag_of_k2_matches_plain():
+    device = require_card()
+    left, _ = _images(70, 150)
+    arms = tcbca.compute_arms(left.to(device), TAU, DIST)
+    vol = _volume(np.random.default_rng(13), 70, 150, 256, 200).to(device)
+    got = cbca_fused(vol, arms, 3, DIST, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(
+        got, tcbca.cbca(vol, arms, 3, DIST, torch.bfloat16), rtol=0, atol=0)
+    assert not torch.equal(got, cbca_fused(vol, arms, 3, DIST))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(9, 150, 128), (3, 33, 20), (5, 420, 300)])
+def test_band_scores_kernel_matches_plain_and_k5(shape, out_dtype):
+    """K6 against its plain version and, negated, against K5 finalized
+    with ndisp = d_pad (bit-equal: the same fmaf chain), at depths that
+    are no multiple of a chunk too."""
+    device = require_card()
+    height, width, d_pad = shape
+    rng = np.random.default_rng(14)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width)).to(device)
+              for _ in "lr")
+    build.LAUNCHES.reset()
+    got = tcv.band_pair_pallas(fl, fr, d_pad, use_mxu=False,
+                               out_dtype=out_dtype)
+    assert _launched() == {"band_scores": 1}
+    want = tcv.band_pair_scores_plain(fl, fr, d_pad, out_dtype)
+    atol = 1e-5 if out_dtype == torch.float32 else 2.0 ** -8
+    for ours, plain in zip(got, want):
+        assert ours.dtype == out_dtype
+        torch.testing.assert_close(ours.float(), plain.float(), atol=atol,
+                                   rtol=0)
+    if d_pad % 128 == 0 and out_dtype == torch.float32:
+        costs = tcv.band_pair(fl, fr, d_pad, d_pad, torch.float32)
+        for ours, cost in zip(got, costs):
+            torch.testing.assert_close(-ours, cost, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paper_mode", [False, True])
+def test_sgm_kernel_on_codes_equals_sgm_on_planes(paper_mode, dtype):
+    device = require_card()
+    images = [x.to(device) for x in _images(40, 72)]
+    config = MatchConfig(sgm_paper_mode=paper_mode)
+    volume = _volume(np.random.default_rng(15), 40, 72, 256, 200).to(device,
+                                                                     dtype)
+    for choice in ("L", "R"):
+        want = tsgm._sgm_one_volume(volume.clone(), *images, choice, 200,
+                                    config)
+        build.LAUNCHES.reset()
+        got = tsgm._sgm_one_volume(volume.clone(), *images, choice, 200,
+                                   config.replace(sgm_u8=True))
+        assert _launched() == {"sgm_sweep": 4}
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        plain = tsgm._sgm_one_volume(*_on_cpu(volume, *images), choice, 200,
+                                     config.replace(sgm_u8=True))
+        torch.testing.assert_close(got.cpu(), plain, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("tiles", [(32, 32, 8), (32, 32, 128), (64, 128, 128),
+                                   (1, 32, 16)])
+def test_stream_kernel_copies_exactly(tiles, dtype):
+    """K10: the output equals the input in both layouts."""
+    device = require_card()
+    tile_h, tile_w, tile_d = tiles
+    if tile_d * torch.empty(0, dtype=dtype).element_size() % 16:
+        pytest.skip("a chunk must be a multiple of 16 bytes")
+    height, width, depth = max(2 * tile_h, 96), max(2 * tile_w, 128), 256
+    generator = torch.Generator(device=device).manual_seed(16)
+    flat = (torch.randn((height, width, depth), device=device,
+                        generator=generator) * 50).to(dtype)
+    build.LAUNCHES.reset()
+    torch.testing.assert_close(
+        stream.cbca_stream(flat, tile_h, tile_w, tile_d), flat, rtol=0,
+        atol=0)
+    split = flat.reshape(height, width, depth // tile_d, tile_d).permute(
+        2, 0, 1, 3).contiguous()
+    torch.testing.assert_close(
+        stream.cbca_stream(split, tile_h, tile_w, tile_d, dsplit=True), split,
+        rtol=0, atol=0)
+    assert _launched() == {"cbca_stream": 2}
+    with pytest.raises(ValueError):  # no whole number of column tiles
+        stream.cbca_stream(flat[:, :width - 1].contiguous(), tile_h, tile_w,
+                           tile_d)
+
+
+@pytest.mark.cuda
+def test_variant_schedules_launch_their_kernels():
+    """rolling, fused2 (even and odd counts), fused16, mxu, joint regions
+    and sgm_u8 on the card, against the K2 pipeline."""
+    device = require_card()
+    params = init_params(0)
+    left, right = (x.numpy() for x in _images(48, 150))
+    ndisp = 40
+
+    def run(config=MatchConfig(), **kwargs):
+        pipeline = MatchPipeline(params, config, bucket=1, device=device,
+                                 **kwargs)
+        build.LAUNCHES.reset()
+        return pipeline(left, right, ndisp), _launched()
+
+    fused, _ = run()
+    rolling, counts = run(cbca_impl="rolling")
+    assert counts == {"band_side": 2, "cbca_rolling_round": 36,
+                      "sgm_sweep": 8}
+    np.testing.assert_array_equal(rolling, fused)
+    two, counts = run(cbca_impl="fused2")
+    assert counts == {"band_side": 2, "cbca_two_rounds": 18, "sgm_sweep": 8}
+    np.testing.assert_array_equal(two, fused)
+    odd = MatchConfig(cbca_num_iterations_1=3, cbca_num_iterations_2=5)
+    two_odd, counts = run(odd, cbca_impl="fused2")
+    assert counts == {"band_side": 2, "cbca_two_rounds": 6, "cbca_round": 4,
+                      "sgm_sweep": 8}
+    np.testing.assert_array_equal(two_odd, run(odd)[0])
+    coded, counts = run(MatchConfig(sgm_u8=True), cbca_impl="rolling")
+    assert counts == {"band_side": 2, "cbca_rolling_round": 36,
+                      "sgm_sweep": 8}
+    np.testing.assert_array_equal(coded, fused)
+    mixed = [run(cbca_impl=impl)[0]
+             for impl in ("fused16", "rolling16", "fused2_16")]
+    np.testing.assert_array_equal(mixed[0], mixed[1])
+    np.testing.assert_array_equal(mixed[0], mixed[2])
+    for config, kwargs in ((MatchConfig(), {"cbca_impl": "mxu"}),
+                           (MatchConfig(cbca_joint_regions=True), {})):
+        got, counts = run(config, **kwargs)
+        assert counts == {"band_side": 2, "sgm_sweep": 8}  # torch ops
+        want = MatchPipeline(params, config, bucket=1, device="cpu",
+                             **kwargs)(left, right, ndisp)
+        # cuDNN and CPU convolutions round apart, so a few WTA ties flip
+        assert np.mean(np.abs(got - want) > 1.0) <= 0.01

@@ -80,17 +80,21 @@ def test_cbca_impl_names_run_the_default_path(case, cbca_impl):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"cbca_impl": "fused16"},
-    {"cbca_impl": "mxu"},
-    {"cbca_impl": "rolling"},
-    {"cbca_impl": "fused2_16"},
+    {"cbca_impl": "fused4"},
+    {"cbca_impl": "mxu", "volume_dtype": "bfloat16"},
+    {"cbca_impl": "rolling8"},
+    {"cbca_impl": "fused2_8"},
     {"cbca_impl": "pallas", "volume_dtype": "bfloat16"},
     {"cost_volume_method": "scan"},
     {"volume_dtype": "int8"},
-    {"config": MatchConfig(cbca_joint_regions=True)},
-    {"config": MatchConfig(sgm_u8=True)},
+    {"cbca_chunk_d": 100},
+    {"volume_dtype": "float16"},
 ])
 def test_unported_options_raise(case, kwargs):
+    """Every option of the JAX ``match_pair`` runs in the port (see
+    ``test_torch_pipeline_variants.py``); what raises is what neither
+    package takes: unknown names, the two f32-only CBCA backends on bf16
+    volumes, a chunk that does not divide the padded depth."""
     with pytest.raises(ValueError):
         match_pair(case["net"], torch.zeros(16, 24), torch.zeros(16, 24), 4,
                    **kwargs)
