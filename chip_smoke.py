@@ -12,8 +12,10 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      middle shape (256 x 384, ndisp 64 and 200; K1-K3 and K5 in f32 and
      bf16, K7 in f32, K4 in its float and raw int8 modes; K5 also against
      two K1 launches; K8 and K9 in f32, bf16 and the bf16-operand mode, also
-     against K2; K2 with the bf16-operand flag; K3 on penalty codes; K6 also
-     against K5; K10's output against its input in both layouts);
+     against K2; K2 with the bf16-operand flag and at ragged shapes (37 x
+     70 x 128, 301 x 45 x 384; radius 0, 1, 13, 16; f32, bf16, bf16
+     operands); K3 on penalty codes; K6 also against K5; K10's output
+     against its input in both layouts);
   4. drives the serving path -- ``MatchPipeline.dispatch``/``fetch`` at
      1000 x 1504, ndisp 200, bf16 volumes, paper-default MatchConfig, the
      fast MC-CNN at full width with seeded random weights -- on one
@@ -41,13 +43,16 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      (where every wrapper runs its plain version), in f32 and bf16 and with
      ``cbca_impl`` fused16, rolling16 and mxu and with joint regions;
   7. holds each kernel against its plain version at the main-path shapes
-     (1000 x 1504 x 256), times both with CUDA events, computes each
-     kernel's bound from this run's inputs, and profiles one pair.
+     (1000 x 1504 x 256), times both with CUDA events (K2 per round in
+     bf16, f32, with bf16 operands and with every arm at the radius, beside
+     K8, K7 and K10's floor at K2's tile shape; K1 per side in bf16 and
+     f32), computes each kernel's bound from this run's inputs, and
+     profiles one pair.
 
 Every failed phase raises, so the exit code is non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
-The last two lines are the per-kernel JSON summary and
-``{"ok": true, "device": {...}}``.
+The last lines are the serving pair's seconds and peak device memory, the
+card, the per-kernel JSON summary and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -126,8 +131,13 @@ OWN_PATH = {
     "cbca_stream": "stream probe",
 }
 # K10 is timed at the tile shapes of K7 (one 32 x 32 x 8-lane block) and of
-# K2 (32-column and 32-row tiles of 128 lanes)
-STREAM_TILES = {"K7": (32, 32, 8), "K2": (32, 32, 128)}
+# K2 (a 256-row band of a 32-column strip, one 32-byte sector of 16 bf16
+# lanes per pixel)
+STREAM_TILES = {"K7": (32, 32, 8), "K2": (256, 32, 16)}
+# K2 where no tile, step or band divides the image: (H, W, D_pad), each at
+# the radii below and in the three modes
+RAGGED_SHAPES = ((37, 70, 128), (301, 45, 384))
+RAGGED_RADII = (0, 1, 13, 16)
 # the card's published peaks (H100 SXM data sheet, dense): device memory
 # rate; f32 outside the tensor cores, bf16 and int8 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -233,8 +243,10 @@ def check_kernels(device, errors: Errors) -> None:
                               2.0 ** -8 if bf16 else 1e-5)
                 if not torch.equal(got[..., ndisp:], want[..., ndisp:]):
                     raise AssertionError("band_side pad lanes differ")
-            # K5: one launch, both sides; the same f32 accumulation order as
-            # K1, so equal to two K1 launches bit for bit (tolerance 0.0)
+            # K5: one launch, both sides. In f32 K1 runs K5's fmaf chain in
+            # channel order, so K5 equals two K1 launches bit for bit; in
+            # bf16 K1 sums its exact products on the tensor cores in another
+            # order, so the two may round one bf16 ulp (2^-8) apart
             pair = band_pair(a, o, ndisp, d_pad, dtype)
             plain = band_pair_plain(a, o, ndisp, d_pad, dtype)
             ones = (band_side(a, o, ndisp, d_pad, "left", dtype),
@@ -243,9 +255,12 @@ def check_kernels(device, errors: Errors) -> None:
                                             ones):
                 err = (got.float() - want.float()).abs().max().item()
                 errors.record("band_pair", f"{tag} {side}", err, 0.0)
-                if not torch.equal(got, one):
+                off = (got[..., :ndisp].float()
+                       - one[..., :ndisp].float()).abs().max().item()
+                if not (off <= (2.0 ** -8 if bf16 else 0.0) and torch.equal(
+                        got[..., ndisp:], one[..., ndisp:])):
                     raise AssertionError(
-                        f"band_pair {tag} {side}: differs from band_side")
+                        f"band_pair {tag} {side}: {off} from band_side")
             volume = ones[0]
             got = cbca_fused(volume, arms, 1, config.cbca_distance)
             want = cbca(volume, arms, 1, config.cbca_distance)
@@ -352,7 +367,10 @@ def check_kernels(device, errors: Errors) -> None:
                 err = (out_c.float() - out_k.float()).abs().max().item()
                 errors.record("sgm_sweep", f"{tag} dir {direction} on codes",
                               err, 0.0)
-    # K10: a copy; the output equals the input in both layouts
+    check_ragged_rounds(device, errors)
+    # K10: a copy; the output equals the input in both layouts (two bands
+    # of K2's tile shape in height)
+    height = 2 * height
     stream_in = (torch.randn((height, width, 256), device=device)
                  * 50).to(torch.bfloat16)
     for label, (tile_h, tile_w, tile_d) in STREAM_TILES.items():
@@ -364,6 +382,45 @@ def check_kernels(device, errors: Errors) -> None:
             errors.record("cbca_stream", f"{label}'s tiles {layout}",
                           err.item(), 0.0)
     torch.cuda.synchronize()
+
+
+def check_ragged_rounds(device, errors: Errors) -> None:
+    """Phase 3, K2 alone: three rounds against the plain rounds where
+    neither the 32-column strip, the 16-row step nor the 256-row band
+    divides the image, at radius 0, 1, 13 and 16, on one and three 128-lane
+    chunks, in f32, bf16 and with bf16 operands on f32 storage. The sums
+    run in the plain round's order, so the tolerance is 0.0."""
+    import torch
+    from mccnn_tpu_torch.ops.cbca import cbca, compute_arms
+    from mccnn_tpu_torch.ops.cbca_fused import cbca_fused
+    from mccnn_tpu_torch.ops.common import BIG_COST
+    from mccnn_tpu_torch.utils.config import MatchConfig
+
+    config = MatchConfig()
+    rng = np.random.default_rng(SEED + 4)
+    modes = (("f32", torch.float32, None), ("bf16", torch.bfloat16, None),
+             ("bf16 operands", torch.float32, torch.bfloat16))
+    for height, width, d_pad in RAGGED_SHAPES:
+        _, image, _ = scene_images(height, width, "occlusion", rng, device,
+                                   20)
+        values = rng.uniform(-1, 1, (height, width, d_pad)).astype(np.float32)
+        values[..., d_pad - 28:] = BIG_COST
+        volume = torch.from_numpy(values).to(device)
+        for radius in RAGGED_RADII:
+            arms = compute_arms(image, config.cbca_intensity, radius + 1)
+            for mode, dtype, compute in modes:
+                operand = volume.to(dtype)
+                got = cbca_fused(operand, arms, 3, radius + 1,
+                                 compute_dtype=compute)
+                want = cbca(operand, arms, 3, radius + 1, compute)
+                err = (got.float() - want.float()).abs().max().item()
+                errors.record(
+                    "cbca_round",
+                    f"ragged {height}x{width}x{d_pad} r{radius} {mode}",
+                    err, 0.0)
+                if got[..., d_pad - 28:].float().min().item() < 1e8:
+                    raise AssertionError("cbca_round ragged: pad lanes fell "
+                                         "below 1e8")
 
 
 def drive_main_path(device, launches):
@@ -420,13 +477,14 @@ def drive_main_path(device, launches):
     check_counts("serve", counts, len(scenes))
     log(f"  mean {np.mean(seconds):.4f} s/pair, peak device memory "
         f"{peak_gb:.2f} GB")
+    serving = {"s_per_pair": float(np.mean(seconds)), "peak_gb": peak_gb}
     check_dispatch_is_async(pipeline, scenes[0])
     for family, scene in zip(SCENES, scenes):
         left, right = (pipeline._to_device(standardize_image(scene[k]))
                        for k in ("left", "right"))
         check_ranges(family, pipeline.net, left, right,
                      volume_dtype="bfloat16")
-    return counts, pipeline
+    return counts, pipeline, serving
 
 
 def check_counts(path: str, counts: dict, pairs: int = 1) -> None:
@@ -889,10 +947,8 @@ def main_shape_kernels(device, errors: Errors) -> dict:
                 2.0 ** -8)
         arms = compute_arms(image, config.cbca_intensity, distance)
         inv = inverse_region_size(arms, distance).contiguous()
-        scratch = torch.empty(volume.shape, dtype=torch.float32,
-                              device=device)
         aggregated = torch.empty_like(volume)
-        cbca_round_cuda(volume, scratch, aggregated, arms, inv, distance)
+        cbca_round_cuda(volume, aggregated, arms, inv, distance)
         compare("cbca_round", side, aggregated,
                 cbca_round(volume, arms, inv, distance), 2.0 ** -8)
         for direction in _DIRECTIONS:
@@ -925,7 +981,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         cbca_two_rounds_cuda(volume, twice, arms, inv, distance)
         compare("cbca_two_rounds", side, twice,
                 cbca_round(aggregated, arms, inv, distance), 0.0)
-        cbca_round_cuda(aggregated, scratch, rolled, arms, inv, distance)
+        cbca_round_cuda(aggregated, rolled, arms, inv, distance)
         if not torch.equal(twice, rolled):
             raise AssertionError("cbca_two_rounds differs from two launches "
                                  "of cbca_round")
@@ -943,7 +999,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
             errors.record("cbca_round_int8", side + what, err, 0.0)
             if not bool((got[..., ndisp:] == 127).all()):
                 raise AssertionError("cbca_round_int8: BIG lanes left 127")
-        volumes[side] = (volume, arms, inv, scratch, aggregated, q)
+        volumes[side] = (volume, arms, inv, aggregated, q)
     del out_k, out_p, got, want, block
     torch.cuda.synchronize()
 
@@ -961,14 +1017,20 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         compare("band_pair", f"{side} f32 vs two band_side", got, one, 0.0)
     del ones
     for side, vol32 in zip(("left", "right"), pair32):
-        _, arms, inv, scratch, _, _ = volumes[side]
+        _, arms, inv, _, _ = volumes[side]
         got = torch.empty_like(vol32)
         cbca_stencil_round_cuda(vol32, got, arms, inv, distance)
         compare("cbca_stencil_round", f"{side} f32", got,
                 cbca_round(vol32, arms, inv, distance), 0.0)
-        # K2 with bf16 operands on f32 storage (tolerance 0.0)
-        cbca_round_cuda(vol32, scratch, got, arms, inv, distance,
-                        torch.bfloat16)
+        # K2 on f32 storage equals K7; then with bf16 operands (tolerance
+        # 0.0)
+        fused32 = torch.empty_like(vol32)
+        cbca_round_cuda(vol32, fused32, arms, inv, distance)
+        if not torch.equal(fused32, got):
+            raise AssertionError("cbca_round f32 differs from "
+                                 "cbca_stencil_round")
+        del fused32
+        cbca_round_cuda(vol32, got, arms, inv, distance, torch.bfloat16)
         compare("cbca_round", f"{side} f32, bf16 operands", got,
                 cbca_round(vol32, arms, inv, distance, torch.bfloat16), 0.0)
     # K6 on the f32 descriptors, raw scores on all 256 lanes (tolerance 0.0
@@ -986,7 +1048,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     del scores, plain_scores, costs
     torch.cuda.synchronize()
 
-    volume, arms, inv, scratch, out, q = volumes["left"]
+    volume, arms, inv, out, q = volumes["left"]
     vol32, out32 = pair32[0], got
     # K4 as its path launches it: one 128-lane chunk of the quantized volume
     chunk_lanes = 128
@@ -1018,7 +1080,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
          lambda: band_side_plain(fl, fr, ndisp, d_pad, "left", dtype),
          10, 2)
     pair("cbca_round",
-         lambda: cbca_round_cuda(volume, scratch, out, arms, inv, distance),
+         lambda: cbca_round_cuda(volume, out, arms, inv, distance),
          lambda: cbca_round(volume, arms, inv, distance),
          20, 2)
     for direction, label in (((0, 1), "horizontal"), ((1, 0), "vertical")):
@@ -1078,10 +1140,12 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     # them; extra keys of the K2 and K3 entries of the summary
     codes = penalty_scale_u8(left, right, "L", (0, 1), d_pad, config.sgm_d)
     extras = (
+        ("band_side", "ms_f32", lambda: band_side(
+            fl32, fr32, ndisp, d_pad, "left", torch.float32)),
         ("cbca_round", "ms_f32", lambda: cbca_round_cuda(
-            vol32, scratch, out32, arms, inv, distance)),
+            vol32, out32, arms, inv, distance)),
         ("cbca_round", "ms_f32_bf16_operands", lambda: cbca_round_cuda(
-            vol32, scratch, out32, arms, inv, distance, torch.bfloat16)),
+            vol32, out32, arms, inv, distance, torch.bfloat16)),
         ("sgm_sweep", "ms_horizontal_on_codes", lambda: sweep_cuda(
             volume, out, left, right, "L", (0, 1), config, codes)),
         ("sgm_sweep", "ms_codes_build_horizontal", lambda: penalty_scale_u8(
@@ -1091,6 +1155,38 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         times[name][key] = time_events(fn, 10)
         log(f"  {name:18s} {key:28s} {times[name][key]:.4f} ms")
     del codes
+    # every arm at the radius (a constant image): what the two single-pass
+    # rounds take when the data does not cut the sums short (the scene's
+    # arms are short); K2 equals K8 there too
+    flat = compute_arms(torch.zeros_like(left), config.cbca_intensity,
+                        distance)
+    flat_inv = inverse_region_size(flat, distance).contiguous()
+    spare = torch.empty_like(volume)
+    cbca_round_cuda(volume, out, flat, flat_inv, distance)
+    cbca_rolling_round_cuda(volume, spare, flat, flat_inv, distance)
+    if not torch.equal(out, spare):
+        raise AssertionError("cbca_round differs from cbca_rolling_round at "
+                             "full arms")
+    for name, fn in (("cbca_round", cbca_round_cuda),
+                     ("cbca_rolling_round", cbca_rolling_round_cuda)):
+        times[name]["ms_full_arms"] = time_events(
+            lambda: fn(volume, spare, flat, flat_inv, distance), 10)
+        log(f"  {name:18s} {'ms_full_arms':28s} "
+            f"{times[name]['ms_full_arms']:.4f} ms")
+    del flat, flat_inv, spare
+    k2 = times["cbca_round"]
+    log(f"  one CBCA round at {height} x {width} x {d_pad}: K2 bf16 "
+        f"{k2['ms']:.4f}, f32 {k2['ms_f32']:.4f}, f32 with bf16 operands "
+        f"{k2['ms_f32_bf16_operands']:.4f}, bf16 with every arm at the "
+        f"radius {k2['ms_full_arms']:.4f} ms (this scene's arms sum to "
+        f"{sum(a.float().mean().item() for a in arms):.3f} pixels per "
+        f"pixel); K8 "
+        f"bf16 "
+        f"{times['cbca_rolling_round']['ms']:.4f}, K7 f32 "
+        f"{times['cbca_stencil_round']['ms']:.4f} ms; K10's floor at K2's "
+        f"tile shape {STREAM_TILES['K2']} {stream_k2['ms']:.4f} ms; K1 per "
+        f"side bf16 {times['band_side']['ms']:.4f}, f32 "
+        f"{times['band_side']['ms_f32']:.4f} ms")
 
     # bounds from this run's inputs. Operations: a band output in range is
     # 64 multiply-adds; a CBCA output adds one value per arm pixel (this
@@ -1191,8 +1287,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda")
+    started = time.perf_counter()
 
-    log("== device")
+    def phase(title: str) -> None:
+        log(f"== [{time.perf_counter() - started:6.1f} s] {title}")
+
+    phase("device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1202,7 +1302,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("== build")
+    phase("build")
     path, seconds = build.build()
     log(f"  kernels built in {seconds:.2f} s -> {os.path.relpath(path, ROOT)}")
     for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
@@ -1210,29 +1310,29 @@ def main() -> int:
             log("  " + line.strip())
     build.library()
 
-    log("== kernels against their plain versions (256 x 384)")
+    phase("kernels against their plain versions (256 x 384)")
     errors = Errors()
     check_kernels(device, errors)
 
-    log(f"== serving path: MatchPipeline {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]}, "
+    phase(f"serving path: MatchPipeline {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]}, "
         f"ndisp {MAIN_NDISP}, bf16, paper defaults")
-    counts, pipeline = drive_main_path(device, build.LAUNCHES)
+    counts, pipeline, serving = drive_main_path(device, build.LAUNCHES)
     launches = {"serve": counts}
 
-    log(f"== batch matcher: cli.match.main on one {MAIN_SHAPE[0]} x "
+    phase(f"batch matcher: cli.match.main on one {MAIN_SHAPE[0]} x "
         f"{MAIN_SHAPE[1]} ndisp-{MAIN_NDISP} scene, three schedules and three "
         "CBCA variants; then sgm_u8, the raw bands and the stream probe")
     launches.update(drive_batch_matcher(device, build.LAUNCHES, smi))
 
-    log("== whole pair: kernels against CPU copies (256 x 384), the "
+    phase("whole pair: kernels against CPU copies (256 x 384), the "
         "bf16-operand modes, mxu and joint regions included")
     compare_whole_pair(device)
 
-    log("== kernels against their plain versions at the main-path shapes "
+    phase("kernels against their plain versions at the main-path shapes "
         "(1000 x 1504 x 256): outputs, then times and bounds")
     times = main_shape_kernels(device, errors)
 
-    log("== profile of one main-path pair")
+    phase("profile of one main-path pair")
     profile_pair(pipeline)
 
     summary = {"kernels": [
@@ -1253,6 +1353,10 @@ def main() -> int:
         }
         for name, (source, replaces) in KERNELS.items()
     ]}
+    phase("done")
+    log(f"serving pair {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]}, ndisp {MAIN_NDISP}, "
+        f"bf16: {serving['s_per_pair']:.4f} s/pair, peak device memory "
+        f"{serving['peak_gb']:.2f} GB")
     log(smi)
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

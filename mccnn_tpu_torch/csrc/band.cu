@@ -10,23 +10,42 @@
 // the pad lanes d >= ndisp, written directly in the storage type (no
 // epilogue pass over the volume).
 //
-// Design. One block per (image row, 32-column tile, 128-disparity chunk);
-// thread t owns disparity d0 + t, so every (H, W, D) store of a column is
-// one coalesced 128-element run. The anchor tile (32 x 64) and the
-// (32 + 127)-column context window of the other image (64 x 159) are staged
-// in shared memory as f32 (48.9 KB, under the 48 KB static limit). The
-// context is stored channel-major with a row stride of 159 words, so the
-// 32 threads of a warp read 32 consecutive words (no bank conflicts) and
-// the transposing store of a coalesced global read hits 32 distinct banks.
-// The anchor row is read as float4 broadcasts.
+// Bound: bytes. A half-resolution side (1000 x 1504 x 256, bf16) writes
+// 0.77 GB and reads 0.39 GB of descriptors; its 49 GFLOP are 0.05 ms at the
+// bf16 tensor rate. 64 scalar FMAs per output, each fed by a shared-memory
+// load, are not: that design is bound by the shared-memory pipe at about
+// ten times the byte bound.
 //
-// Bound. Each output needs 64 FMAs: 2 x 24.6 G per half-resolution side
-// (1000 x 1504 x 256) -- well under the f32 FMA peak, so the kernel is bound
-// by its shared-memory reads (about 1.25 loads per FMA). Register blocking
-// over neighbouring diagonals (w - d constant) or wgmma on the
-// (TW x 64) x (64 x TW+TD) correlation is the later work; the TPU kernel's
-// lane-reversed context, skew rolls and anti-identity flip exist only for
-// Mosaic and have no counterpart here.
+// bf16 descriptors (the serving path): the tensor cores. One block of four
+// warps per (image row, 64-column tile, 128-disparity chunk). The anchor
+// tile (64 x 64) and the (64 + 128)-column context window of the other
+// image come in with 16-byte cp.async copies, zero-filled outside the image,
+// and stay bf16, pixel-major as in device memory: that is already the
+// row-major A and the column-major B of mma.sync.m16n8k16 (bf16 in, f32
+// accumulate), so nothing is transposed. Rows are padded to 72 values (36
+// words), which spreads the eight rows of a fragment load over all banks.
+// Warp m owns anchor rows 16 m .. 16 m + 15: their band lies in context
+// columns 16 m .. 16 m + 143 (w - d + 127 on the left side, whose context
+// starts 127 columns before the tile, and w + d on the right), 18 n-tiles of
+// 8, four k-steps each. The accumulators are not read along diagonals in
+// registers: each is negated, replaced by 0 where the match falls outside
+// the image and by BIG_COST on lanes d >= ndisp, and scattered as bf16 into
+// a (64 x 128) band tile in shared memory at [w][d]; every band element is
+// hit exactly once. The warp then stores its 16 rows with 16 bytes a
+// thread, 256-byte runs per pixel. Only the warp itself reads what it
+// scattered, so the kernel has one block barrier, after the copies land.
+// Products of bf16 values are exact in f32; only the order of the 64-term
+// sum differs from the plain version's, so the stored bf16 value is within
+// one ulp (2^-8 at |cost| <= 1).
+// Budget: shared memory 9,216 (anchor) + 27,648 (context) + 17,408 (band,
+// rows padded to 136 values) = 54,272 bytes, dynamic, four blocks per SM;
+// 16 + 4 + 2 fragment and accumulator registers live in the inner loop.
+//
+// f32 descriptors (the exact-f32 schedules): one block per (image row,
+// 32-column tile, 128-disparity chunk), thread t owns disparity d0 + t and
+// runs the 64-term fmaf chain in channel order out of f32 tiles in shared
+// memory. K5 and K6 run the same chain, so K5 in f32 equals two of these
+// launches bit for bit; TF32 tensor cores would break that.
 #include "common.cuh"
 
 namespace {
@@ -36,11 +55,11 @@ constexpr int kTileW = 32;
 constexpr int kChunkD = 128;                  // threads per block
 constexpr int kCtx = kTileW + kChunkD - 1;    // context columns (159)
 
-template <typename T>
 __global__ void __launch_bounds__(kChunkD)
-band_side_kernel(const T* __restrict__ anchor, const T* __restrict__ other,
-                 T* __restrict__ out, int width, int d_pad, int ndisp,
-                 int right) {
+band_side_f32_kernel(const float* __restrict__ anchor,
+                     const float* __restrict__ other,
+                     float* __restrict__ out, int width, int d_pad, int ndisp,
+                     int right) {
   __shared__ __align__(16) float s_anchor[kTileW * kChannels];
   __shared__ float s_ctx[kChannels * kCtx];
 
@@ -52,16 +71,15 @@ band_side_kernel(const T* __restrict__ anchor, const T* __restrict__ other,
 
   if (d0 >= ndisp) {  // the whole chunk is pad lanes
     for (int wl = 0; wl < kTileW && w0 + wl < width; ++wl) {
-      out[(row + w0 + wl) * d_pad + d] = mccnn::from_f32<T>(mccnn::kBigCost);
+      out[(row + w0 + wl) * d_pad + d] = mccnn::kBigCost;
     }
     return;
   }
 
   for (int e = t; e < kTileW * kChannels; e += kChunkD) {
     const int gw = w0 + e / kChannels;
-    s_anchor[e] = gw < width
-        ? mccnn::to_f32(anchor[(row + gw) * kChannels + e % kChannels])
-        : 0.f;
+    s_anchor[e] =
+        gw < width ? anchor[(row + gw) * kChannels + e % kChannels] : 0.f;
   }
   // context column x holds other-image column base + x: the left band reads
   // columns w - d, the right band w + d
@@ -70,9 +88,8 @@ band_side_kernel(const T* __restrict__ anchor, const T* __restrict__ other,
     const int x = e / kChannels;
     const int c = e % kChannels;
     const int gx = base + x;
-    s_ctx[c * kCtx + x] = (gx >= 0 && gx < width)
-        ? mccnn::to_f32(other[(row + gx) * kChannels + c])
-        : 0.f;
+    s_ctx[c * kCtx + x] =
+        (gx >= 0 && gx < width) ? other[(row + gx) * kChannels + c] : 0.f;
   }
   __syncthreads();
 
@@ -103,7 +120,139 @@ band_side_kernel(const T* __restrict__ anchor, const T* __restrict__ other,
         v = -acc;
       }
     }
-    out[(row + gw) * d_pad + d] = mccnn::from_f32<T>(v);
+    out[(row + gw) * d_pad + d] = v;
+  }
+}
+
+// ---- bf16: mma.sync ----
+
+constexpr int kMmaTileW = 64;                    // anchor columns per block
+constexpr int kMmaThreads = 128;                 // one warp per 16 rows
+constexpr int kMmaCtx = kMmaTileW + kChunkD;     // context columns (192)
+constexpr int kRowPad = kChannels + 8;           // values per staged pixel
+constexpr int kBandPad = kChunkD + 8;            // values per band row
+constexpr int kNTiles = (16 + kChunkD) / 8;      // n-tiles per warp (18)
+constexpr size_t kMmaSharedBytes =
+    sizeof(__nv_bfloat16) *
+    (kMmaTileW * kRowPad + kMmaCtx * kRowPad + kMmaTileW * kBandPad);
+
+using mccnn::copy_async_16;
+
+__device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// D (16 x 8, f32) += A (16 x 16, row-major) x B (16 x 8, column-major)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+band_side_bf16_kernel(const __nv_bfloat16* __restrict__ anchor,
+                      const __nv_bfloat16* __restrict__ other,
+                      __nv_bfloat16* __restrict__ out, int width, int d_pad,
+                      int ndisp, int right) {
+  extern __shared__ __align__(16) __nv_bfloat16 s_tiles[];
+  __nv_bfloat16* s_anchor = s_tiles;                       // [64][72]
+  __nv_bfloat16* s_ctx = s_anchor + kMmaTileW * kRowPad;   // [192][72]
+  __nv_bfloat16* s_band = s_ctx + kMmaCtx * kRowPad;       // [64][136]
+
+  const int w0 = blockIdx.x * kMmaTileW;
+  const int d0 = blockIdx.z * kChunkD;
+  const int tid = threadIdx.x;
+  const size_t row = static_cast<size_t>(blockIdx.y) * width;
+  constexpr int kGroups = kChunkD / 8;  // 16-byte runs per band row
+
+  if (d0 >= ndisp) {  // the whole chunk is pad lanes
+    const __nv_bfloat162 big = __float2bfloat162_rn(mccnn::kBigCost);
+    const unsigned word = *reinterpret_cast<const unsigned*>(&big);
+    const uint4 run = make_uint4(word, word, word, word);
+    for (int e = tid; e < kMmaTileW * kGroups; e += kMmaThreads) {
+      const int gw = w0 + e / kGroups;
+      if (gw < width) {
+        *reinterpret_cast<uint4*>(out + (row + gw) * d_pad + d0 +
+                                  8 * (e % kGroups)) = run;
+      }
+    }
+    return;
+  }
+
+  // context column x holds other-image column base + x: the left band reads
+  // columns w - d (so its context starts 127 columns before the tile and
+  // runs backwards in d), the right band w + d
+  const int base = right ? w0 + d0 : w0 - d0 - (kChunkD - 1);
+  constexpr int kPieces = kChannels / 8;  // 16-byte pieces per pixel
+  for (int e = tid; e < (kMmaTileW + kMmaCtx) * kPieces; e += kMmaThreads) {
+    const int piece = e % kPieces;
+    const int x = e / kPieces;
+    const bool is_anchor = x < kMmaTileW;
+    const int gx = is_anchor ? w0 + x : base + x - kMmaTileW;
+    const bool valid = gx >= 0 && gx < width;
+    const __nv_bfloat16* src =
+        (is_anchor ? anchor : other) +
+        (valid ? (row + gx) * kChannels + 8 * piece : 0);
+    // the context follows the anchor in shared memory, same row stride
+    copy_async_16(s_anchor + x * kRowPad + 8 * piece, src, valid);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const int lane = tid % 32;
+  const int m0 = (tid / 32) * 16;  // the warp's anchor rows
+  const int g = lane / 4;          // fragment row (A, C) or column (B)
+  const int t = lane % 4;
+  unsigned a[kChannels / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < kChannels / 16; ++ks) {
+    const __nv_bfloat16* p = s_anchor + (m0 + g) * kRowPad + 16 * ks + 2 * t;
+    a[ks][0] = load_u32(p);
+    a[ks][1] = load_u32(p + 8 * kRowPad);
+    a[ks][2] = load_u32(p + 8);
+    a[ks][3] = load_u32(p + 8 * kRowPad + 8);
+  }
+  for (int nt = 0; nt < kNTiles; ++nt) {
+    const int n0 = m0 + 8 * nt;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < kChannels / 16; ++ks) {
+      const __nv_bfloat16* q = s_ctx + (n0 + g) * kRowPad + 16 * ks + 2 * t;
+      mma_bf16(c, a[ks], load_u32(q), load_u32(q + 8));
+    }
+    // c[i] = <anchor(wl), context(x)>: rows g and g + 8, columns 2 t, 2 t + 1
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int wl = m0 + g + 8 * (i / 2);
+      const int x = n0 + 2 * t + i % 2;
+      const int dl = right ? x - wl : wl - x + (kChunkD - 1);
+      if (dl >= 0 && dl < kChunkD) {
+        const int gw = w0 + wl;
+        const int d = d0 + dl;
+        const int src = right ? gw + d : gw - d;
+        // no correspondence: 0, the border fills overwrite it
+        const float v = d >= ndisp ? mccnn::kBigCost
+                        : (src < 0 || src >= width) ? 0.f
+                                                    : -c[i];
+        s_band[wl * kBandPad + dl] = __float2bfloat16_rn(v);
+      }
+    }
+  }
+  __syncwarp();  // the warp reads only the 16 band rows it scattered
+
+  for (int e = lane; e < 16 * kGroups; e += 32) {
+    const int wl = m0 + e / kGroups;
+    const int gw = w0 + wl;
+    if (gw < width) {
+      *reinterpret_cast<uint4*>(out + (row + gw) * d_pad + d0 +
+                                8 * (e % kGroups)) =
+          *reinterpret_cast<const uint4*>(s_band + wl * kBandPad +
+                                          8 * (e % kGroups));
+    }
   }
 }
 
@@ -116,15 +265,26 @@ extern "C" int mccnn_band_side(const void* anchor, const void* other,
   if (channels != kChannels || d_pad % kChunkD || height > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((width + kTileW - 1) / kTileW, height, d_pad / kChunkD);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    band_side_kernel<__nv_bfloat16><<<grid, kChunkD, 0, s>>>(
+    if (reinterpret_cast<size_t>(anchor) % 16 ||
+        reinterpret_cast<size_t>(other) % 16 ||
+        reinterpret_cast<size_t>(out) % 16) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    static bool shared_allowed[mccnn::kMaxDevices];
+    const cudaError_t err = mccnn::allow_shared_once(
+        band_side_bf16_kernel, kMmaSharedBytes, shared_allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((width + kMmaTileW - 1) / kMmaTileW, height,
+                    d_pad / kChunkD);
+    band_side_bf16_kernel<<<grid, kMmaThreads, kMmaSharedBytes, s>>>(
         static_cast<const __nv_bfloat16*>(anchor),
         static_cast<const __nv_bfloat16*>(other),
         static_cast<__nv_bfloat16*>(out), width, d_pad, ndisp, right);
   } else {
-    band_side_kernel<float><<<grid, kChunkD, 0, s>>>(
+    const dim3 grid((width + kTileW - 1) / kTileW, height, d_pad / kChunkD);
+    band_side_f32_kernel<<<grid, kChunkD, 0, s>>>(
         static_cast<const float*>(anchor), static_cast<const float*>(other),
         static_cast<float*>(out), width, d_pad, ndisp, right);
   }

@@ -1,5 +1,6 @@
 // Arm-gated sums shared by the row-rolling CBCA kernels (K8 cbca_rolling.cu,
-// K9 cbca_two_round.cu).
+// K9 cbca_two_round.cu); K2 (cbca_round.cu) takes the halo and the operand
+// rounding from here and keeps its sums in register windows of its own.
 //
 // Both sums add in the plain round's order (mccnn_tpu_torch/ops/cbca.py:
 // centre, then +1, -1, +2, -2, ...) with plain f32 adds, so a kernel built

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "mccnn_band_side": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mccnn_band_pair": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mccnn_band_scores": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mccnn_cbca_round": (_P, _P, _P, _P, _P, _P, _P, _P,
+    "mccnn_cbca_round": (_P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _P),
     "mccnn_cbca_stencil_round": (_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _P),

@@ -7,8 +7,10 @@ in the plain round's order, so the two agree bit for bit; this is tighter
 than the TPU kernel's bf16 mode, which rounds the horizontal sums to bf16
 in its DEFAULT-precision vertical phase.
 
-On CUDA the rounds update a copy of the input in place, with one f32
-scratch volume for the horizontal sums.
+A round is one pass that keeps its horizontal sums on the chip and reads
+its neighbours, so on CUDA the rounds alternate between two buffers of the
+storage type (``ops/cbca_rounds.py``) and the caller's volume is never
+written.
 
 ``cbca_fused(..., compute_dtype=torch.bfloat16)`` on an f32 volume is the
 mixed mode ("fused16"): f32 storage between rounds, every volume value
@@ -31,13 +33,6 @@ from __future__ import annotations
 
 import torch
 
-from mccnn_tpu_torch.kernels.build import (
-    LAUNCHES,
-    check,
-    library,
-    require_cuda,
-    stream_handle,
-)
 from mccnn_tpu_torch.ops.cbca import (
     CrossArms,
     cbca,
@@ -45,43 +40,30 @@ from mccnn_tpu_torch.ops.cbca import (
     inverse_region_size,
 )
 from mccnn_tpu_torch.ops.cbca_rounds import (
-    check_round_operands,
     compute_flag,
     launch_round,
     run_rounds,
 )
 from mccnn_tpu_torch.ops.common import BIG_COST
 
+_STORAGE = (torch.float32, torch.bfloat16)
+_LANES = 128  # disparities per K2 launch: D must be a multiple
 _BIG_CUTOFF = 1e8  # values at or above this are BIG_COST pad sentinels
 _INT8_LANES = 32  # disparities per K4 block: D must be a multiple
 
 
-def cbca_round_cuda(vol_in: torch.Tensor, scratch: torch.Tensor,
-                    vol_out: torch.Tensor, arms: CrossArms,
-                    inv_region: torch.Tensor, distance_threshold: int,
+def cbca_round_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
+                    arms: CrossArms, inv_region: torch.Tensor,
+                    distance_threshold: int,
                     compute_dtype: torch.dtype | None = None) -> None:
-    """Launch one K2 round: vol_out <- round(vol_in) (may alias vol_in).
+    """Launch one K2 round: vol_out <- round(vol_in), out of place.
 
     ``compute_dtype=torch.bfloat16`` on f32 storage rounds each value to
-    bf16 as the horizontal pass stages it."""
-    radius = check_round_operands(vol_in, vol_out, arms, inv_region,
-                                  distance_threshold,
-                                  (torch.float32, torch.bfloat16), 128,
-                                  in_place=True)
-    require_cuda("scratch", scratch, (torch.float32,))
-    if scratch.shape != vol_in.shape:
-        raise ValueError("cbca round: the scratch must have the volume's "
-                         "shape")
-    height, width, d_pad = vol_in.shape
-    code = library().mccnn_cbca_round(
-        vol_in.data_ptr(), scratch.data_ptr(), vol_out.data_ptr(),
-        arms.left.data_ptr(), arms.right.data_ptr(), arms.up.data_ptr(),
-        arms.down.data_ptr(), inv_region.data_ptr(), height, width, d_pad,
-        radius, int(vol_in.dtype == torch.bfloat16),
-        compute_flag(vol_in, compute_dtype), stream_handle(vol_in),
-    )
-    check(code, "cbca_round")
-    LAUNCHES.add("cbca_round")
+    bf16 as it enters the horizontal sum."""
+    launch_round("mccnn_cbca_round", "cbca_round", vol_in, vol_out, arms,
+                 inv_region, distance_threshold, _STORAGE, _LANES,
+                 int(vol_in.dtype == torch.bfloat16),
+                 compute_flag(vol_in, compute_dtype))
 
 
 def _quantize_int8(volume: torch.Tensor):
@@ -179,13 +161,10 @@ def cbca_fused(volume: torch.Tensor, arms: CrossArms, num_iterations: int,
     if num_iterations == 0 or volume.device.type == "cpu":
         return cbca(volume, arms, num_iterations, distance_threshold,
                     compute_dtype)
-    inv_region = inverse_region_size(arms, distance_threshold)
-    out = volume.clone()
-    scratch = torch.empty(volume.shape, dtype=torch.float32,
-                          device=volume.device)
-    arms = CrossArms(*(a.to(torch.int32).contiguous() for a in arms))
-    inv_region = inv_region.contiguous()
-    for _ in range(num_iterations):
-        cbca_round_cuda(out, scratch, out, arms, inv_region,
-                        distance_threshold, compute_dtype)
-    return out
+
+    def one_round(vol_in, vol_out, arms, inv_region, distance):
+        cbca_round_cuda(vol_in, vol_out, arms, inv_region, distance,
+                        compute_dtype)
+
+    return run_rounds(one_round, volume.contiguous(), arms, num_iterations,
+                      distance_threshold)

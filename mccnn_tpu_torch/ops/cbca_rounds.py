@@ -21,13 +21,13 @@ MAX_RADIUS = 16  # the kernels' halo
 
 def check_round_operands(vol_in: torch.Tensor, vol_out: torch.Tensor,
                          arms: CrossArms, inv_region: torch.Tensor,
-                         distance_threshold: int, dtypes: tuple, lanes: int,
-                         in_place: bool = False) -> int:
+                         distance_threshold: int, dtypes: tuple,
+                         lanes: int) -> int:
     """Validate the operands of a round kernel; returns the radius.
 
     ``dtypes`` are the storage types the kernel takes, ``lanes`` what the
-    depth must be a multiple of; ``in_place`` says whether the output may
-    be the input.
+    depth must be a multiple of. Every round kernel reads its neighbours,
+    so the output may not be the input.
     """
     require_cuda("volume", vol_in, dtypes)
     require_cuda("output volume", vol_out, (vol_in.dtype,))
@@ -40,7 +40,7 @@ def check_round_operands(vol_in: torch.Tensor, vol_out: torch.Tensor,
             or inv_region.shape != (height, width) or depth % lanes):
         raise ValueError(
             f"cbca round: mismatched shapes or D % {lanes} != 0")
-    if not in_place and vol_out.data_ptr() == vol_in.data_ptr():
+    if vol_out.data_ptr() == vol_in.data_ptr():
         raise ValueError("cbca round: the kernel cannot run in place")
     radius = distance_threshold - 1
     if not 0 <= radius <= MAX_RADIUS:

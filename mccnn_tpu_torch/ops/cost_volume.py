@@ -15,7 +15,12 @@ mccnn_tpu/ops/cost_volume_pallas.py::_band_kernel_mxu_one) and
 launch the kernel, on a CPU tensor they run ``band_side_plain`` /
 ``band_pair_plain``. For bf16 volumes the caller passes bf16 descriptors
 (the JAX pipeline casts them too); products of bf16 values are exact in
-f32, and the correlation accumulates in f32 either way.
+f32, and the correlation accumulates in f32 either way. On bf16
+descriptors K1 multiplies on the tensor cores (``mma.sync``) and reads the
+band off the correlation tile's diagonals, so only the order of the
+64-term sum differs from the plain version's and from K5's: the stored
+bf16 values lie within one ulp. On f32 descriptors K1 runs K5's fmaf chain
+in channel order, and K5 equals two K1 launches bit for bit.
 
 ``band_pair_pallas`` is the counterpart of the JAX package's function of
 that name (mccnn_tpu/ops/cost_volume_pallas.py): with ``use_mxu=True`` it

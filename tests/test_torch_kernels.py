@@ -120,7 +120,7 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     arms = tcbca.compute_arms(left, TAU, DIST)
     inv = tcbca.inverse_region_size(arms, DIST)
     with pytest.raises(ValueError, match="CUDA"):
-        cbca_round_cuda(vol, torch.empty_like(vol), vol, arms, inv, DIST)
+        cbca_round_cuda(vol, torch.empty_like(vol), arms, inv, DIST)
     with pytest.raises(ValueError, match="CUDA"):
         tsgm.sweep_cuda(vol, vol, left, right, "L", (1, 0), MatchConfig())
     with pytest.raises(ValueError, match="CUDA"):
@@ -276,7 +276,10 @@ def test_kernel_path_matches_plain_path(volume_dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(9, 150, 70), (3, 33, 20), (5, 420, 300)])
 def test_band_pair_kernel_equals_two_band_side_launches(shape, dtype):
-    """K5 against K1 twice (bit-equal) and against its plain version."""
+    """K5 against K1 twice and against its plain version. In f32 K1 runs
+    K5's fmaf chain in channel order, so the two are bit-equal; in bf16 K1
+    sums its exact products on the tensor cores in another order, so the
+    stored values may round one bf16 ulp (2^-8 at |cost| <= 1) apart."""
     device = require_card()
     height, width, ndisp = shape
     d_pad = -(-ndisp // 128) * 128
@@ -288,13 +291,14 @@ def test_band_pair_kernel_equals_two_band_side_launches(shape, dtype):
     left, right = tcv.band_pair(fl, fr, ndisp, d_pad, dtype)
     assert build.LAUNCHES.snapshot()["band_pair"] == 1
     assert build.LAUNCHES.snapshot()["band_side"] == 0
-    # the same f32 accumulation order as K1: bit-equal
-    torch.testing.assert_close(
-        left, tcv.band_side(fl, fr, ndisp, d_pad, "left", dtype), rtol=0,
-        atol=0)
-    torch.testing.assert_close(
-        right, tcv.band_side(fr, fl, ndisp, d_pad, "right", dtype), rtol=0,
-        atol=0)
+    ones = (tcv.band_side(fl, fr, ndisp, d_pad, "left", dtype),
+            tcv.band_side(fr, fl, ndisp, d_pad, "right", dtype))
+    against_k1 = 0.0 if dtype == torch.float32 else 2.0 ** -8
+    for got, one in zip((left, right), ones):
+        torch.testing.assert_close(got[..., :ndisp].float(),
+                                   one[..., :ndisp].float(), rtol=0,
+                                   atol=against_k1)
+        assert torch.equal(got[..., ndisp:], one[..., ndisp:])  # pad lanes
     want = tcv.band_pair_plain(fl, fr, ndisp, d_pad, dtype)
     # |cost| <= 1: f32 sums in another order; bf16 one ulp (2^-8) apart
     atol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
@@ -418,6 +422,68 @@ def test_single_pass_cbca_kernels_at_other_radii(distance):
 
 _MODES = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
           "mixed": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("distance", [1, 2, 14, 17])
+@pytest.mark.parametrize("shape", [(37, 70, 128, 5), (48, 64, 384, 300),
+                                   (300, 40, 128, 64), (1, 1, 128, 1)])
+def test_cbca_round_kernel_at_ragged_shapes(shape, distance, mode):
+    """K2 where neither the strip (32 columns), the step (16 rows) nor the
+    band (256 rows) divides the image, at radius 0, 1, 13 and 16 and one or
+    three 128-lane chunks, in the three modes: bit-equal to the plain
+    rounds, the input untouched, pad lanes still BIG."""
+    device = require_card()
+    dtype, compute = _MODES[mode]
+    height, width, d_pad, ndisp = shape
+    left, _ = _images(max(height, 48), max(width, 64))
+    arms = tcbca.compute_arms(left[:height, :width].to(device), TAU, distance)
+    vol = _volume(np.random.default_rng(17), height, width, d_pad,
+                  ndisp).to(device, dtype)
+    keep = vol.clone()
+    build.LAUNCHES.reset()
+    got = cbca_fused(vol, arms, 3, distance, compute_dtype=compute)
+    assert _launched() == {"cbca_round": 3}
+    torch.testing.assert_close(
+        got, tcbca.cbca(vol, arms, 3, distance, compute), rtol=0, atol=0)
+    torch.testing.assert_close(vol, keep, rtol=0, atol=0)
+    assert got[..., ndisp:].float().min().item() >= 1e8
+    inv = tcbca.inverse_region_size(arms, distance).contiguous()
+    with pytest.raises(ValueError, match="in place"):
+        cbca_round_cuda(vol, vol, arms, inv, distance)
+    with pytest.raises(ValueError, match="halo"):
+        cbca_fused(vol, arms, 1, 18)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("shape", [(37, 70, 5), (37, 70, 64), (48, 64, 64),
+                                   (5, 333, 200), (3, 1504, 200)])
+def test_band_kernel_on_the_tensor_cores_at_ragged_shapes(shape, side):
+    """K1 in bf16 (mma.sync): widths that are no multiple of its 64-column
+    tile, narrower than one tile, and as wide as the serving path's; a
+    chunk of pad lanes only (ndisp 5 and 64 of D_pad 128, 200 of 256)."""
+    device = require_card()
+    height, width, ndisp = shape
+    d_pad = -(-ndisp // 128) * 128
+    rng = np.random.default_rng(18)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width)).to(
+        device, torch.bfloat16) for _ in "lr")
+    build.LAUNCHES.reset()
+    got = tcv.band_side(fl, fr, ndisp, d_pad, side, torch.bfloat16)
+    assert _launched() == {"band_side": 1}
+    want = tcv.band_side_plain(fl, fr, ndisp, d_pad, side, torch.bfloat16)
+    # exact products, the 64-term f32 sum in another order: one bf16 ulp
+    torch.testing.assert_close(got[..., :ndisp].float(),
+                               want[..., :ndisp].float(), atol=2.0 ** -8,
+                               rtol=0)
+    assert torch.equal(got[..., ndisp:], want[..., ndisp:])
+    # where no correspondence exists the band holds exactly 0
+    cols = torch.arange(width, device=device)[:, None]
+    disps = torch.arange(ndisp, device=device)[None, :]
+    valid = cols >= disps if side == "left" else cols + disps < width
+    assert not bool(got[..., :ndisp][:, ~valid].any())
 
 
 @pytest.mark.cuda

@@ -1,0 +1,275 @@
+"""Torch models of the index arithmetic of kernels K2 and K1, on the CPU.
+
+The CUDA kernels run only on a card, and only there are they held against
+their plain versions (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
+These tests guard a model of the kernels, not the kernels: what can go
+wrong in a kernel before any arithmetic does is an offset (a tile's origin,
+a halo, a ring slot, a diagonal), and the models repeat that arithmetic
+step by step in torch, so a decomposition can be shown right before it is
+written in CUDA. The tile sizes and the radius split are read from the CUDA
+sources; the formulas (the lag of the vertical sums, the n-tiles of a warp)
+are the model's own copy. One case per distinct piece of arithmetic:
+
+  * K2 (``csrc/cbca_round.cu``): strips of 32 columns and bands of rows,
+    walked in steps of 16 rows; raw rows with a halo of R columns, zero
+    outside the image; horizontal sums into a ring of rows, vertical sums
+    out of the ring a fixed number of steps later; sums in the plain
+    round's order. Against ``ops.cbca.cbca_round``, tolerance 0.0.
+  * K1 (``csrc/band.cu``, bf16 route): per (64-column tile, 128-disparity
+    chunk) the correlation of the anchor tile with a (64 + 128)-column
+    context window, the band read off its diagonals per 16-row warp tile of
+    18 n-tiles. Against ``ops.cost_volume.band_side_plain``: bf16 inputs
+    one bf16 ulp, zeros and pad lanes exact; the same offsets on f32 inputs
+    to 1e-5 (another summation order; the kernel's f32 route keeps its
+    earlier tiling and is not modelled).
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
+from mccnn_tpu_torch.ops import cost_volume as tcv  # noqa: E402
+from mccnn_tpu_torch.ops.common import BIG_COST  # noqa: E402
+
+from torch_parity import scene_pair, unit_features  # noqa: E402
+
+_CSRC = Path(tcbca.__file__).resolve().parents[1] / "csrc"
+
+
+def _constants(source: str) -> dict:
+    """The ``constexpr int kName = <number>;`` lines of a CUDA source."""
+    text = (_CSRC / source).read_text()
+    return {name: int(value) for name, value in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+
+
+K2 = _constants("cbca_round.cu")
+K1 = _constants("band.cu")
+# the radius up to which K2 runs its smaller instantiation, and the larger
+K2_SMALL_R = int(re.search(r"radius <= (\d+)",
+                           (_CSRC / "cbca_round.cu").read_text()).group(1))
+K2_LARGE_R = _constants("cbca_arms.cuh")["kArmHalo"]
+
+
+def test_the_models_read_the_kernels_constants():
+    assert {"kTileW", "kBatch", "kBandH", "kLpt", "kSkip"} <= set(K2)
+    assert K2["kTileW"] == 32 and K2["kBatch"] == 16
+    assert (K2_SMALL_R, K2_LARGE_R) == (13, 16)
+    assert {"kChannels", "kChunkD", "kMmaTileW"} <= set(K1)
+    assert K1["kChunkD"] == 128 and K1["kMmaTileW"] == 64
+
+
+def _gated_sum(line, centre0, count, neg, pos, radius_r):
+    """Sums of ``count`` neighbouring windows along dim 1 of ``line``
+    ((n, positions, D)): window s has its centre at position centre0 + s and
+    adds, in the kernel's order, +o where o <= pos and -o where o <= neg."""
+    acc = line[:, centre0:centre0 + count].clone()
+    for o in range(1, radius_r + 1):
+        plus = line[:, centre0 + o:centre0 + o + count]
+        minus = line[:, centre0 - o:centre0 - o + count]
+        acc = acc + torch.where((pos >= o)[..., None], plus, 0.0)
+        acc = acc + torch.where((neg >= o)[..., None], minus, 0.0)
+    return acc
+
+
+def _plane(values, rows, cols, fill=0):
+    """``values[rows][:, cols]`` of an (H, W) plane with ``fill`` where a
+    row or column lies outside it (the zero-filling copy)."""
+    height, width = values.shape
+    out = torch.full((len(rows), len(cols)), fill, dtype=values.dtype)
+    ok_r = (rows >= 0) & (rows < height)
+    ok_c = (cols >= 0) & (cols < width)
+    inside = values[rows[ok_r]][:, cols[ok_c]]
+    out[ok_r[:, None] & ok_c[None, :]] = inside.flatten()
+    return out
+
+
+def k2_model(volume, arms, inv_region, distance, compute_dtype=None,
+             band_h=None):
+    """One round as ``cbca_round_kernel`` decomposes it (all lane chunks at
+    once: the lane offset d0 + lane is the kernel's only use of them)."""
+    tile_w, batch = K2["kTileW"], K2["kBatch"]
+    band_h = band_h or K2["kBandH"]
+    radius = distance - 1
+    # the template parameter R
+    reach = K2_SMALL_R if radius <= K2_SMALL_R else K2_LARGE_R
+    lag = -(-2 * reach // batch)
+    ring_rows = (lag + 1) * batch
+    height, width, depth = volume.shape
+    operand = volume.float()
+    if compute_dtype == torch.bfloat16:
+        operand = operand.to(torch.bfloat16).float()
+    out = torch.zeros_like(volume)
+    written = torch.zeros((height, width), dtype=torch.int32)
+    for hb0 in range(0, height, band_h):
+        hb1 = min(hb0 + band_h, height)
+        steps = -(-(hb1 - hb0) // batch) + lag
+        for w0 in range(0, width, tile_w):
+            ring = torch.full((ring_rows, tile_w, depth), float("nan"))
+            raw_cols = torch.arange(w0 - reach, w0 + tile_w + reach)
+            out_cols = torch.arange(w0, w0 + tile_w)
+            for j in range(steps):
+                rows = hb0 - reach + j * batch + torch.arange(batch)
+                # raw rows: zero outside the image and past the band's halo
+                raw = torch.zeros((batch, len(raw_cols), depth))
+                ok_r = (rows >= 0) & (rows < min(height, hb1 + reach))
+                ok_c = (raw_cols >= 0) & (raw_cols < width)
+                raw[ok_r[:, None] & ok_c[None, :]] = operand[
+                    rows[ok_r]][:, raw_cols[ok_c]].reshape(-1, depth)
+                left = _plane(arms.left, rows, out_cols).clamp(max=radius)
+                right = _plane(arms.right, rows, out_cols).clamp(max=radius)
+                # H: raw column c is image column w0 - R + c
+                slot0 = (j % (lag + 1)) * batch
+                ring[slot0:slot0 + batch] = _gated_sum(
+                    raw, reach, tile_w, left, right, reach)
+                if j < lag:
+                    continue
+                # V: ring offset k is image row hb0 - R + k
+                first = (j - lag) * batch
+                out_rows = hb0 + first + torch.arange(batch)
+                up = _plane(arms.up, out_rows, out_cols).clamp(max=radius)
+                down = _plane(arms.down, out_rows, out_cols).clamp(max=radius)
+                inv = _plane(inv_region, out_rows, out_cols, 0.0)
+                slots = (first + torch.arange(batch + 2 * reach)) % ring_rows
+                column = ring[slots].permute(1, 0, 2)  # (col, position, D)
+                sums = _gated_sum(column, reach, batch, up.T, down.T,
+                                  reach).permute(1, 0, 2)
+                keep_r = out_rows < hb1
+                keep_c = out_cols < width
+                result = (sums * inv[..., None]).to(volume.dtype)
+                out[out_rows[keep_r][:, None], out_cols[keep_c][None, :]] = \
+                    result[keep_r][:, keep_c]
+                written[out_rows[keep_r][:, None],
+                        out_cols[keep_c][None, :]] += 1
+    assert bool((written == 1).all())  # every pixel stored exactly once
+    return out
+
+
+def _round_case(height, width, depth, distance, dtype, seed, capped=True):
+    rng = np.random.default_rng(seed)
+    left, _, _, _ = scene_pair("textureless", max(height, 48),
+                               max(width, 64), seed=5)
+    image = torch.from_numpy(left)[:height, :width]
+    if capped:
+        arms = tcbca.compute_arms(image, 0.02, distance)
+    else:  # arms that run past the border: they add the halo's zeros
+        arms = tcbca.CrossArms(*(
+            torch.from_numpy(rng.integers(0, distance, (height, width))
+                             .astype(np.int32)) for _ in range(4)))
+    values = rng.uniform(-1, 1, (height, width, depth)).astype(np.float32)
+    values[..., depth - 3:] = BIG_COST
+    volume = torch.from_numpy(values).to(dtype)
+    inv = tcbca.inverse_region_size(arms, distance)
+    return volume, arms, inv
+
+
+_ROUND_MODES = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
+                "mixed": (torch.float32, torch.bfloat16)}
+
+
+# every radius split (0, 1, R = 13, R = 16) at a shape ragged in both axes;
+# the three operand modes at a shape that fills its strips
+@pytest.mark.parametrize("shape,distance,mode", [
+    ((37, 70), 1, "f32"), ((37, 70), 2, "f32"), ((37, 70), 14, "f32"),
+    ((37, 70), 17, "f32"), ((48, 64), 14, "f32"), ((48, 64), 14, "bf16"),
+    ((48, 64), 14, "mixed"),
+])
+def test_k2_tiling_model_equals_plain_round(shape, distance, mode):
+    dtype, compute = _ROUND_MODES[mode]
+    volume, arms, inv = _round_case(*shape, 8, distance, dtype, seed=20)
+    want = tcbca.cbca_round(volume, arms, inv, distance, compute)
+    # bands of 32 rows: two bands with a ragged last one, each with its halo
+    got = k2_model(volume, arms, inv, distance, compute, band_h=32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_k2_tiling_model_at_the_kernels_band_height(shape=(300, 40)):
+    volume, arms, inv = _round_case(*shape, 4, 14, torch.float32, seed=21)
+    want = tcbca.cbca_round(volume, arms, inv, 14)
+    torch.testing.assert_close(k2_model(volume, arms, inv, 14), want, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("distance", [14, 17])
+def test_k2_tiling_model_with_arms_past_the_border(distance):
+    volume, arms, inv = _round_case(37, 70, 4, distance, torch.float32,
+                                    seed=22, capped=False)
+    want = tcbca.cbca_round(volume, arms, inv, distance)
+    got = k2_model(volume, arms, inv, distance, band_h=32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def k1_model(anchor, other, ndisp, d_pad, side, dtype):
+    """One side's band as ``band_side_bf16_kernel`` tiles it."""
+    tile_w, chunk_d = K1["kMmaTileW"], K1["kChunkD"]
+    n_tiles = (16 + chunk_d) // 8
+    height, width, _ = anchor.shape
+    right = side == "right"
+    a, o = anchor.float(), other.float()
+    out = torch.full((height, width, d_pad), float("nan"))
+    wl = torch.arange(tile_w)[:, None]
+    dl = torch.arange(chunk_d)[None, :]
+    for d0 in range(0, d_pad, chunk_d):
+        for w0 in range(0, width, tile_w):
+            cols = w0 + torch.arange(tile_w)
+            keep = cols < width
+            if d0 >= ndisp:  # the whole chunk is pad lanes
+                out[:, cols[keep], d0:d0 + chunk_d] = BIG_COST
+                continue
+            base = w0 + d0 if right else w0 - d0 - (chunk_d - 1)
+            ctx_cols = base + torch.arange(tile_w + chunk_d)
+            tile = torch.zeros((height, tile_w, a.shape[2]))
+            tile[:, keep] = a[:, cols[keep]]
+            ctx = torch.zeros((height, tile_w + chunk_d, a.shape[2]))
+            ok = (ctx_cols >= 0) & (ctx_cols < width)
+            ctx[:, ok] = o[:, ctx_cols[ok]]
+            corr = torch.bmm(tile, ctx.transpose(1, 2))  # (H, 64, 192)
+            # the band's diagonal: context column x of anchor row wl
+            x = wl + dl if right else wl - dl + (chunk_d - 1)
+            # warp m reads only its 18 n-tiles: columns 16 m .. 16 m + 143
+            m0 = wl // 16 * 16
+            assert bool(((x >= m0) & (x < m0 + 8 * n_tiles)).all())
+            assert int(x.max()) < tile_w + chunk_d
+            band = -torch.gather(corr, 2, x.expand(height, -1, -1))
+            gw, d = w0 + wl, d0 + dl
+            src = gw + d if right else gw - d
+            band = torch.where((src >= 0) & (src < width), band, 0.0)
+            band = torch.where(d < ndisp, band, BIG_COST)
+            out[:, cols[keep], d0:d0 + chunk_d] = band[:, keep]
+    assert not bool(torch.isnan(out).any())  # every element stored
+    return out.to(dtype)
+
+
+# per side: a ragged last tile, a full tile with a full chunk's worth of
+# lanes, a second chunk that is partly pad lanes, a chunk that is all pad
+# lanes; then the same offsets on f32 inputs
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("shape,ndisp,d_pad,dtype", [
+    ((7, 70), 5, 128, torch.bfloat16),
+    ((6, 64), 64, 128, torch.bfloat16),
+    ((3, 200), 200, 256, torch.bfloat16),
+    ((7, 70), 5, 256, torch.bfloat16),
+    ((3, 200), 200, 256, torch.float32),
+])
+def test_k1_tiling_model_equals_plain_band(shape, ndisp, d_pad, dtype, side):
+    height, width = shape
+    rng = np.random.default_rng(23)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width)).to(dtype)
+              for _ in "lr")
+    got = k1_model(fl, fr, ndisp, d_pad, side, dtype)
+    want = tcv.band_side_plain(fl, fr, ndisp, d_pad, side, dtype)
+    # the 64-term f32 sum in another order: 1e-5 at |cost| <= 1; the stored
+    # bf16 value may then round one ulp (2^-8) apart
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got[..., :ndisp].float(),
+                               want[..., :ndisp].float(), rtol=0, atol=atol)
+    assert torch.equal(got[..., ndisp:], want[..., ndisp:])
+    cols = torch.arange(width)[:, None]
+    disps = torch.arange(ndisp)[None, :]
+    valid = cols >= disps if side == "left" else cols + disps < width
+    assert not bool(got[..., :ndisp][:, ~valid].any())
