@@ -14,8 +14,10 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      two K1 launches; K8 and K9 in f32, bf16 and the bf16-operand mode, also
      against K2; K2 with the bf16-operand flag and at ragged shapes (37 x
      70 x 128, 301 x 45 x 384; radius 0, 1, 13, 16; f32, bf16, bf16
-     operands); K3 on penalty codes; K6 also against K5; K10's output
-     against its input in both layouts);
+     operands), K7 there too (also against K2), and K3 there in every
+     direction, in place and out of place, on planes and on codes; K3 on
+     penalty codes; K6 also against K5; K10's output against its input in
+     both layouts);
   4. drives the serving path -- ``MatchPipeline.dispatch``/``fetch`` at
      1000 x 1504, ndisp 200, bf16 volumes, paper-default MatchConfig, the
      fast MC-CNN at full width with seeded random weights -- on one
@@ -45,9 +47,10 @@ Run from the checkout root on a machine with one NVIDIA H100. It
   7. holds each kernel against its plain version at the main-path shapes
      (1000 x 1504 x 256), times both with CUDA events (K2 per round in
      bf16, f32, with bf16 operands and with every arm at the radius, beside
-     K8, K7 and K10's floor at K2's tile shape; K1 per side in bf16 and
-     f32), computes each kernel's bound from this run's inputs, and
-     profiles one pair.
+     K8, K7 with and without its 512-thread lever and K10's floor at the
+     tiling of K2 and K7; K1 per side in bf16 and f32; K3 in place as the
+     chained path launches it, out of place, and in f32), computes each
+     kernel's bound from this run's inputs, and profiles one pair.
 
 Every failed phase raises, so the exit code is non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
@@ -130,12 +133,13 @@ OWN_PATH = {
     "cbca_two_rounds": "match fused2 bf16",
     "cbca_stream": "stream probe",
 }
-# K10 is timed at the tile shapes of K7 (one 32 x 32 x 8-lane block) and of
-# K2 (a 256-row band of a 32-column strip, one 32-byte sector of 16 bf16
-# lanes per pixel)
-STREAM_TILES = {"K7": (32, 32, 8), "K2": (256, 32, 16)}
-# K2 where no tile, step or band divides the image: (H, W, D_pad), each at
-# the radii below and in the three modes
+# K10 is timed at the tiling of K2 and K7 (a 256-row band of a 32-column
+# strip, one 32-byte sector per pixel: 16 bf16 lanes) and at the 32 x 32 x
+# 8-lane blocks of K7's first port
+STREAM_TILES = {"K2 and K7": (256, 32, 16), "32 x 32 x 8": (32, 32, 8)}
+STREAM_HALO = 32  # rows (columns) a tile's window adds: radius 16 each side
+# K2, K7 and K3 where no tile, step, band, ring or block divides the image:
+# (H, W, D_pad); the rounds at each radius below
 RAGGED_SHAPES = ((37, 70, 128), (301, 45, 384))
 RAGGED_RADII = (0, 1, 13, 16)
 # the card's published peaks (H100 SXM data sheet, dense): device memory
@@ -379,21 +383,32 @@ def check_kernels(device, errors: Errors) -> None:
         for layout, vol in (("flat", stream_in), ("dsplit", split)):
             out = cbca_stream(vol, tile_h, tile_w, tile_d, layout == "dsplit")
             err = (out.float() - cbca_stream_plain(vol).float()).abs().max()
-            errors.record("cbca_stream", f"{label}'s tiles {layout}",
+            errors.record("cbca_stream", f"tiles of {label} {layout}",
                           err.item(), 0.0)
     torch.cuda.synchronize()
 
 
 def check_ragged_rounds(device, errors: Errors) -> None:
-    """Phase 3, K2 alone: three rounds against the plain rounds where
-    neither the 32-column strip, the 16-row step nor the 256-row band
-    divides the image, at radius 0, 1, 13 and 16, on one and three 128-lane
-    chunks, in f32, bf16 and with bf16 operands on f32 storage. The sums
-    run in the plain round's order, so the tolerance is 0.0."""
+    """Phase 3 at shapes that nothing divides. K2: three rounds against the
+    plain rounds where neither the 32-column strip, the 16-row step nor the
+    256-row band divides the image, at radius 0, 1, 13 and 16, on one and
+    three 128-lane chunks, in f32, bf16 and with bf16 operands on f32
+    storage; K7 (32-row steps) the same in f32, also against K2. The sums
+    run in the plain round's order, so the tolerance is 0.0. K3: every
+    direction of both volumes, in place and out of place, on the planes and
+    on codes, in f32 and bf16, where no ring or block of fibres divides the
+    image (tolerance 0.0)."""
     import torch
     from mccnn_tpu_torch.ops.cbca import cbca, compute_arms
     from mccnn_tpu_torch.ops.cbca_fused import cbca_fused
+    from mccnn_tpu_torch.ops.cbca_pallas import cbca_pallas
     from mccnn_tpu_torch.ops.common import BIG_COST
+    from mccnn_tpu_torch.ops.sgm import (
+        _DIRECTIONS,
+        penalty_scale_u8,
+        sweep_cuda,
+        sweep_plain,
+    )
     from mccnn_tpu_torch.utils.config import MatchConfig
 
     config = MatchConfig()
@@ -401,8 +416,8 @@ def check_ragged_rounds(device, errors: Errors) -> None:
     modes = (("f32", torch.float32, None), ("bf16", torch.bfloat16, None),
              ("bf16 operands", torch.float32, torch.bfloat16))
     for height, width, d_pad in RAGGED_SHAPES:
-        _, image, _ = scene_images(height, width, "occlusion", rng, device,
-                                   20)
+        _, image, right = scene_images(height, width, "occlusion", rng,
+                                       device, 20)
         values = rng.uniform(-1, 1, (height, width, d_pad)).astype(np.float32)
         values[..., d_pad - 28:] = BIG_COST
         volume = torch.from_numpy(values).to(device)
@@ -421,6 +436,38 @@ def check_ragged_rounds(device, errors: Errors) -> None:
                 if got[..., d_pad - 28:].float().min().item() < 1e8:
                     raise AssertionError("cbca_round ragged: pad lanes fell "
                                          "below 1e8")
+                if mode == "f32":
+                    got7 = cbca_pallas(operand, arms, 3, radius + 1)
+                    err = (got7 - want).abs().max().item()
+                    errors.record(
+                        "cbca_stencil_round",
+                        f"ragged {height}x{width}x{d_pad} r{radius}", err,
+                        0.0)
+                    if not torch.equal(got7, got):
+                        raise AssertionError("cbca_stencil_round ragged: "
+                                             "differs from cbca_round")
+        for dtype in (torch.float32, torch.bfloat16):
+            operand = volume.to(dtype)
+            worst = 0.0
+            for choice in ("L", "R"):
+                for direction in _DIRECTIONS:
+                    codes = penalty_scale_u8(image, right, choice, direction,
+                                             d_pad, config.sgm_d)
+                    for code in (None, codes):
+                        for in_place in (True, False):
+                            got, want = operand.clone(), operand.clone()
+                            outs = (got, want) if in_place else (
+                                torch.empty_like(got), torch.empty_like(got))
+                            sweep_cuda(got, outs[0], image, right, choice,
+                                       direction, config, code)
+                            sweep_plain(want, outs[1], image, right, choice,
+                                        direction, config, code)
+                            err = (outs[0].float() - outs[1].float()).abs()
+                            worst = max(worst, err.max().item())
+            errors.record("sgm_sweep",
+                          f"ragged {height}x{width}x{d_pad} {str(dtype)[6:]} "
+                          "(L, R; 4 dirs; in/out of place; planes, codes)",
+                          worst, 0.0)
 
 
 def drive_main_path(device, launches):
@@ -1062,7 +1109,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     tiled[:height] = volume
     for label, tiles in STREAM_TILES.items():
         err = (cbca_stream(tiled, *tiles).float() - tiled.float()).abs().max()
-        errors.record("cbca_stream", f"{label}'s tiles", err.item(), 0.0)
+        errors.record("cbca_stream", f"tiles of {label}", err.item(), 0.0)
     times = {}
 
     def pair(name, kernel, plain, reps_k, reps_p):
@@ -1083,15 +1130,21 @@ def main_shape_kernels(device, errors: Errors) -> dict:
          lambda: cbca_round_cuda(volume, out, arms, inv, distance),
          lambda: cbca_round(volume, arms, inv, distance),
          20, 2)
+    # K3 in place, as the chained serving path launches it (on a copy: each
+    # launch sweeps the last one's output, which costs the kernel the same),
+    # beside its plain version in place
+    chained = volume.clone()
     for direction, label in (((0, 1), "horizontal"), ((1, 0), "vertical")):
         pair(f"sgm_sweep {label}",
-             lambda d=direction: sweep_cuda(volume, out, left, right, "L", d,
-                                            config),
-             lambda d=direction: sweep_plain(volume, out, left, right, "L",
-                                             d, config),
+             lambda d=direction: sweep_cuda(chained, chained, left, right,
+                                            "L", d, config),
+             lambda d=direction: sweep_plain(chained, chained, left, right,
+                                             "L", d, config),
              10, 1)
     h, v = times.pop("sgm_sweep horizontal"), times.pop("sgm_sweep vertical")
     times["sgm_sweep"] = {k: (h[k] + v[k]) / 2 for k in h}
+    times["sgm_sweep"].update(ms_horizontal=h["ms"], ms_vertical=v["ms"])
+    del chained
     pair("cbca_round_int8 full depth",
          lambda: cbca_round_int8_cuda(q, out8, arms, inv, distance),
          lambda: cbca_round_int8_plain(q, arms, inv, distance),
@@ -1124,20 +1177,36 @@ def main_shape_kernels(device, errors: Errors) -> dict:
          lambda: band_pair_scores_plain(fl32, fr32, d_pad),
          10, 2)
     # K10 beside the one PyTorch call that computes the same function, a
-    # copy; its time in the summary is the one at K7's tile shape
+    # copy; its time in the summary is the one at the tiling of K2 and K7,
+    # beside the floor of that tiling's window traffic: (1 + 32 / tile_h)
+    # (1 + 32 / tile_w) reads and one write of the volume
     for label, tiles in STREAM_TILES.items():
-        pair(f"cbca_stream {label}'s tiles",
-             lambda t=tiles: cbca_stream(tiled, *t),
-             lambda: cbca_stream_plain(tiled),
-             20, 20)
-    stream_k2 = times.pop("cbca_stream K2's tiles")
-    times["cbca_stream"] = times.pop("cbca_stream K7's tiles")
+        pair(f"cbca_stream {label}", lambda t=tiles: cbca_stream(tiled, *t),
+             lambda: cbca_stream_plain(tiled), 20, 20)
+    (walk_label, (tile_h, tile_w, _)), (old_label, _) = STREAM_TILES.items()
+    stream_old = times.pop(f"cbca_stream {old_label}")
+    times["cbca_stream"] = times.pop(f"cbca_stream {walk_label}")
+    reads = (1 + STREAM_HALO / tile_h) * (1 + STREAM_HALO / tile_w)
     times["cbca_stream"].update(
         library_ms=times["cbca_stream"]["plain_ms"],
-        ms_at_k2_tiles=stream_k2["ms"])
-    # the two new flags, kernel only: K2 with bf16 operands on f32 storage
-    # beside K2 on f32, K3 on penalty codes beside the torch ops that build
-    # them; extra keys of the K2 and K3 entries of the summary
+        window_bound_ms=1e3 * (reads + 1) * tiled.numel() * 2
+        / HBM_BYTES_PER_S,
+        ms_at_32x32x8_tiles=stream_old["ms"])
+    # K3 out of place (the paper mode) and in f32 in place (paths E and
+    # T), each the mean of a horizontal and a vertical sweep
+    chained32 = vol32.clone()
+    for key, source, target in (("ms_out_of_place", volume, out),
+                                ("ms_f32", chained32, chained32)):
+        times["sgm_sweep"][key] = sum(
+            time_events(lambda d=d, s=source, t=target: sweep_cuda(
+                s, t, left, right, "L", d, config), 10)
+            for d in ((0, 1), (1, 0))) / 2
+        log(f"  {'sgm_sweep':18s} {key:28s} "
+            f"{times['sgm_sweep'][key]:.4f} ms")
+    del chained32
+    # the flags, kernel only: K2 with bf16 operands on f32 storage beside K2
+    # on f32, K3 on penalty codes beside the torch ops that build them;
+    # extra keys of the K2 and K3 entries of the summary
     codes = penalty_scale_u8(left, right, "L", (0, 1), d_pad, config.sgm_d)
     extras = (
         ("band_side", "ms_f32", lambda: band_side(
@@ -1155,6 +1224,10 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         times[name][key] = time_events(fn, 10)
         log(f"  {name:18s} {key:28s} {times[name][key]:.4f} ms")
     del codes
+    # K7 without its lever is K2's f32 instantiation: the same walk with 256
+    # threads and 16-row steps, on the same operands
+    times["cbca_stencil_round"]["ms_without_lever"] = \
+        times["cbca_round"]["ms_f32"]
     # every arm at the radius (a constant image): what the two single-pass
     # rounds take when the data does not cut the sums short (the scene's
     # arms are short); K2 equals K8 there too
@@ -1174,19 +1247,22 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         log(f"  {name:18s} {'ms_full_arms':28s} "
             f"{times[name]['ms_full_arms']:.4f} ms")
     del flat, flat_inv, spare
-    k2 = times["cbca_round"]
+    k2, k3 = times["cbca_round"], times["sgm_sweep"]
     log(f"  one CBCA round at {height} x {width} x {d_pad}: K2 bf16 "
         f"{k2['ms']:.4f}, f32 {k2['ms_f32']:.4f}, f32 with bf16 operands "
         f"{k2['ms_f32_bf16_operands']:.4f}, bf16 with every arm at the "
         f"radius {k2['ms_full_arms']:.4f} ms (this scene's arms sum to "
         f"{sum(a.float().mean().item() for a in arms):.3f} pixels per "
-        f"pixel); K8 "
-        f"bf16 "
-        f"{times['cbca_rolling_round']['ms']:.4f}, K7 f32 "
-        f"{times['cbca_stencil_round']['ms']:.4f} ms; K10's floor at K2's "
-        f"tile shape {STREAM_TILES['K2']} {stream_k2['ms']:.4f} ms; K1 per "
-        f"side bf16 {times['band_side']['ms']:.4f}, f32 "
-        f"{times['band_side']['ms_f32']:.4f} ms")
+        f"pixel); K8 bf16 {times['cbca_rolling_round']['ms']:.4f}, K7 f32 "
+        f"{times['cbca_stencil_round']['ms']:.4f} ms (without its lever "
+        f"{k2['ms_f32']:.4f}); K10's floor at the tiling of K2 and K7 "
+        f"{STREAM_TILES[walk_label]} {times['cbca_stream']['ms']:.4f} ms "
+        f"(window traffic {times['cbca_stream']['window_bound_ms']:.4f}); K1 "
+        f"per side bf16 {times['band_side']['ms']:.4f}, f32 "
+        f"{times['band_side']['ms_f32']:.4f} ms; K3 per sweep in place "
+        f"{k3['ms']:.4f} (horizontal {k3['ms_horizontal']:.4f}, vertical "
+        f"{k3['ms_vertical']:.4f}), out of place {k3['ms_out_of_place']:.4f},"
+        f" f32 {k3['ms_f32']:.4f} ms")
 
     # bounds from this run's inputs. Operations: a band output in range is
     # 64 multiply-adds; a CBCA output adds one value per arm pixel (this

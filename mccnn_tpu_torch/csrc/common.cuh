@@ -51,6 +51,9 @@ __device__ __forceinline__ void copy_async_4(void* shared, const void* global,
                : "memory");
 }
 
+// Shared memory one block may use on Hopper (227 KB of the SM's 256 KB).
+constexpr int kMaxSharedBytes = 232448;
+
 // Raise a kernel's dynamic shared-memory limit (above 48 KB it must be asked
 // for) at the kernel's first launch on each device instead of on every
 // launch. For kernels whose `bytes` is a constant; `done` is a static array

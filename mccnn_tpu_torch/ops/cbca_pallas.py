@@ -4,9 +4,11 @@
 ``cbca_pallas`` is a drop-in for ``ops.cbca.cbca`` on f32 volumes, the
 ``cbca_impl="pallas"`` backend: the region-size normalizer once per call,
 then one launch of ``csrc/cbca_stencil.cu`` per round on a CUDA tensor, or
-the plain round (``ops/cbca.py``) on a CPU tensor. The kernel keeps the
-horizontal sums in shared memory (no scratch volume in device memory) and
-sums in the plain round's order, so the two agree bit for bit.
+the plain round (``ops/cbca.py``) on a CPU tensor. The kernel runs K2's
+one-pass walk (``csrc/cbca_walk.cuh``) in f32 with blocks of its own: the
+horizontal sums stay on the chip (no scratch volume in device memory) and
+are taken in the plain round's order, so the two agree bit for bit, and
+K7 equals K2 in f32.
 
 A round reads its neighbours, so on CUDA the rounds alternate between two
 buffers: a copy of the input and one more volume.

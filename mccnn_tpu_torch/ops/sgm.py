@@ -180,6 +180,38 @@ def sweep_plain(vol_in: torch.Tensor, vol_out: torch.Tensor,
         dst[s] = prev.to(vol_out.dtype)
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def kernel_planes(left_image: torch.Tensor, right_image: torch.Tensor,
+                  choice: str, direction: Tuple[int, int], d_pad: int,
+                  sgm_d: float):
+    """K3's two uint8 penalty planes, rows padded to multiples of 16 bytes:
+
+    * D1, (H, pitch1): the sweep image's small-gradient bits in columns
+      [0, W);
+    * D2, (H, pitch2): the other image's bits at column c + d_pad for probe
+      column c, 1 ("small") wherever the probe is out of range (``_probe``),
+      so columns -d_pad .. W + d_pad - 1 all read a defined bit.
+
+    The kernel then needs no bounds test on a probe, and its 16-byte copies
+    of a probe run stay inside the plane."""
+    small_d1, small_other = _penalty_bits(left_image, right_image, choice,
+                                          direction, sgm_d)
+    height, width = small_d1.shape
+    device = small_d1.device
+    d1 = torch.zeros((height, _round16(width)), dtype=torch.uint8,
+                     device=device)
+    d1[:, :width] = small_d1
+    d2 = torch.ones((height, _round16(width + 2 * d_pad)), dtype=torch.uint8,
+                    device=device)
+    rw = direction[1]
+    lo, hi = (max(0, rw), width) if choice == "L" else (0, width + min(0, rw))
+    d2[:, d_pad + lo:d_pad + hi] = small_other[:, lo:hi]
+    return d1, d2
+
+
 def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
                left_image: torch.Tensor, right_image: torch.Tensor,
                choice: str, direction: Tuple[int, int],
@@ -187,7 +219,7 @@ def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
                codes: torch.Tensor | None = None) -> None:
     """Launch K3 for one sweep of vol_in into vol_out (may alias vol_in);
     with ``codes`` the kernel reads the penalty codes, else it derives the
-    penalties from the images' gradient planes."""
+    penalties from the images' gradient planes (``kernel_planes``)."""
     require_cuda("volume", vol_in, (torch.float32, torch.bfloat16))
     require_cuda("output volume", vol_out, (vol_in.dtype,))
     height, width, d_pad = vol_in.shape
@@ -199,11 +231,10 @@ def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
         raise ValueError("images and volume disagree in (H, W)")
     vertical, forward, p1_base, p2_base = _sweep_params(direction, config)
     if codes is None:
-        small_d1, small_other = _penalty_bits(left_image, right_image,
-                                              choice, direction, config.sgm_d)
-        small_d1 = small_d1.to(torch.uint8).contiguous()
-        small_other = small_other.to(torch.uint8).contiguous()
-        planes = (small_d1.data_ptr(), small_other.data_ptr(), None)
+        d1, d2 = kernel_planes(left_image, right_image, choice, direction,
+                               d_pad, config.sgm_d)
+        planes = (d1.data_ptr(), d2.data_ptr(), None)
+        pitches = (d1.shape[1], d2.shape[1])
     else:
         require_cuda("penalty codes", codes, (torch.uint8,))
         lines = (height, width) if vertical else (width, height)
@@ -212,11 +243,10 @@ def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
                 f"penalty codes must be sweep-leading {(*lines, d_pad)}, "
                 f"got {tuple(codes.shape)}")
         planes = (None, None, codes.data_ptr())
-    rw = direction[1]
+        pitches = (0, 0)
     code = library().mccnn_sgm_sweep(
         vol_in.data_ptr(), vol_out.data_ptr(), *planes, height, width,
-        d_pad, int(vertical),
-        int(forward), int(choice == "L"), max(0, rw), width + min(0, rw),
+        d_pad, int(vertical), int(forward), int(choice == "L"), *pitches,
         p1_base, p2_base, 1.0 / config.sgm_q1, 1.0 / config.sgm_q2,
         int(vol_in.dtype == torch.bfloat16), stream_handle(vol_in),
     )

@@ -14,6 +14,7 @@ a tensor that is not on CUDA instead of falling back.
 """
 
 import copy
+import re
 from pathlib import Path
 
 import numpy as np
@@ -56,6 +57,7 @@ from mccnn_tpu_torch.pipeline.match import (  # noqa: E402
 from mccnn_tpu_torch.tools import bench_cbca_stream as stream  # noqa: E402
 from mccnn_tpu_torch.utils.config import MatchConfig  # noqa: E402
 
+from chip_smoke import RAGGED_RADII, RAGGED_SHAPES  # noqa: E402
 from torch_parity import require_card, scene_pair, unit_features  # noqa: E402
 
 NDISP = 70
@@ -677,3 +679,128 @@ def test_variant_schedules_launch_their_kernels():
                              **kwargs)(left, right, ndisp)
         # cuDNN and CPU convolutions round apart, so a few WTA ties flip
         assert np.mean(np.abs(got - want) > 1.0) <= 0.01
+
+
+def _ring_lines(dtype, d_pad):
+    """Lines per warp in K3's ring, from the constants of its source."""
+    text = (build.SOURCE_DIR / "sgm_sweep.cu").read_text()
+    const = {name: int(value) for name, value in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    line_bytes = d_pad * torch.empty(0, dtype=dtype).element_size()
+    return min(const["kMaxLines"],
+               max(const["kMinLines"], const["kRingBytes"] // line_bytes))
+
+
+def _hold_sweeps(volume, images, config=MatchConfig()):
+    """K3 against ``sweep_plain`` on the card for every direction, both
+    volumes, in place and out of place, on the gradient planes and on
+    penalty codes: bit-equal, the input of an out-of-place sweep untouched,
+    pad lanes still BIG."""
+    d_pad = volume.shape[2]
+    for choice in ("L", "R"):
+        for direction in tsgm._DIRECTIONS:
+            for coded in (False, True):
+                codes = tsgm.penalty_scale_u8(
+                    *images, choice, direction, d_pad,
+                    config.sgm_d) if coded else None
+                for in_place in (True, False):
+                    got, want = volume.clone(), volume.clone()
+                    outs = (got, want) if in_place else (
+                        torch.empty_like(volume), torch.empty_like(volume))
+                    build.LAUNCHES.reset()
+                    tsgm.sweep_cuda(got, outs[0], *images, choice, direction,
+                                    config, codes)
+                    assert _launched() == {"sgm_sweep": 1}
+                    tsgm.sweep_plain(want, outs[1], *images, choice,
+                                     direction, config, codes)
+                    what = (choice, direction, coded, in_place)
+                    torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                                               atol=0, msg=str(what))
+                    if not in_place:
+                        assert torch.equal(got, volume)
+                    assert outs[0][..., -3:].float().min().item() >= 1e8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_pad", [128, 256, 384, 512])
+@pytest.mark.parametrize("lines", ["1", "2", "k-1", "k", "k+1"])
+def test_sgm_sweep_kernel_at_the_ring_edges(lines, d_pad, dtype):
+    """K3 on sweeps of 1, 2, k - 1, k and k + 1 lines, where k is the depth
+    of a warp's ring at this D_pad and type: vertical sweeps of n rows and
+    horizontal sweeps of n columns."""
+    device = require_card()
+    k = _ring_lines(dtype, d_pad)
+    n = {"1": 1, "2": 2, "k-1": k - 1, "k": k, "k+1": k + 1}[lines]
+    rng = np.random.default_rng(18)
+    for height, width in ((n, 7), (5, n)):
+        left, right = _images(48, 64)
+        images = [x[:height, :width].contiguous().to(device)
+                  for x in (left, right)]
+        volume = _volume(rng, height, width, d_pad, d_pad - 3).to(device,
+                                                                  dtype)
+        _hold_sweeps(volume, images)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_sgm_sweep_kernel_at_ragged_shapes(shape, dtype):
+    """K3 where no ring depth, block of four fibres or 16-byte chunk of a
+    penalty row divides the image (chip_smoke.py's ragged shapes)."""
+    device = require_card()
+    height, width, d_pad = shape
+    left, right = _images(max(height, 48), max(width, 64))
+    images = [x[:height, :width].contiguous().to(device)
+              for x in (left, right)]
+    volume = _volume(np.random.default_rng(19), height, width, d_pad,
+                     d_pad - 3).to(device, dtype)
+    _hold_sweeps(volume, images)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgm_sweep_kernel_with_zero_minima(dtype):
+    """Lines whose minimum over d is an exact zero of either sign: K3's
+    ordered min-reduction and the plain ``amin`` may pick different zeros,
+    which can change the sign of a zero result and never a value."""
+    device = require_card()
+    rng = np.random.default_rng(20)
+    height, width, d_pad = 24, 40, 128
+    values = rng.integers(0, 3, (height, width, d_pad)).astype(np.float32)
+    values = np.where(rng.random(values.shape) < 0.5, values, -values)
+    values = np.where(values == 0.0, values, np.abs(values))  # +-0 and > 0
+    values[..., -3:] = BIG_COST
+    volume = torch.from_numpy(values).to(device, dtype)
+    assert bool(torch.signbit(volume).any())
+    left, right = _images(48, 64)
+    images = [x[:height, :width].contiguous().to(device)
+              for x in (left, right)]
+    _hold_sweeps(volume, images)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", RAGGED_RADII)
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_cbca_stencil_kernel_at_ragged_shapes(shape, radius):
+    """K7 where neither the 32-column strip, the 32-row step (16 at radius
+    16) nor the 256-row band divides the image: three rounds bit-equal to
+    the plain rounds and to K2 in f32, the input untouched, pad lanes BIG."""
+    device = require_card()
+    height, width, d_pad = shape
+    distance = radius + 1
+    left, _ = _images(max(height, 48), max(width, 64))
+    arms = tcbca.compute_arms(left[:height, :width].to(device), TAU,
+                              distance)
+    vol = _volume(np.random.default_rng(21), height, width, d_pad,
+                  d_pad - 28).to(device)
+    keep = vol.clone()
+    build.LAUNCHES.reset()
+    got = cbca_pallas(vol, arms, 3, distance)
+    assert _launched() == {"cbca_stencil_round": 3}
+    torch.testing.assert_close(got, tcbca.cbca(vol, arms, 3, distance),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got, cbca_fused(vol, arms, 3, distance),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(vol, keep, rtol=0, atol=0)
+    assert got[..., d_pad - 28:].min().item() >= 1e8

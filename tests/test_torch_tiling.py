@@ -1,4 +1,5 @@
-"""Torch models of the index arithmetic of kernels K2 and K1, on the CPU.
+"""Torch models of the index arithmetic of kernels K2, K7, K1 and K3, on the
+CPU.
 
 The CUDA kernels run only on a card, and only there are they held against
 their plain versions (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
@@ -10,8 +11,10 @@ written in CUDA. The tile sizes and the radius split are read from the CUDA
 sources; the formulas (the lag of the vertical sums, the n-tiles of a warp)
 are the model's own copy. One case per distinct piece of arithmetic:
 
-  * K2 (``csrc/cbca_round.cu``): strips of 32 columns and bands of rows,
-    walked in steps of 16 rows; raw rows with a halo of R columns, zero
+  * K2 and K7 (``csrc/cbca_walk.cuh``, the walk both run;
+    ``csrc/cbca_round.cu`` and ``csrc/cbca_stencil.cu`` set its step):
+    strips of 32 columns and bands of rows, walked in steps of 16 (K2) or
+    32 rows (K7 up to R = 13); raw rows with a halo of R columns, zero
     outside the image; horizontal sums into a ring of rows, vertical sums
     out of the ring a fixed number of steps later; sums in the plain
     round's order. Against ``ops.cbca.cbca_round``, tolerance 0.0.
@@ -22,6 +25,13 @@ are the model's own copy. One case per distinct piece of arithmetic:
     one bf16 ulp, zeros and pad lanes exact; the same offsets on f32 inputs
     to 1e-5 (another summation order; the kernel's f32 route keeps its
     earlier tiling and is not modelled).
+  * K3 (``csrc/sgm_sweep.cu``): a ring of lines per fibre filled a fixed
+    number of lines ahead, which slot holds which line in both sweep
+    orders, that an in-place sweep reads each line before it writes it, and
+    the penalty bytes a slot or a staged row holds: the 16-byte-aligned
+    window of the padded D2 plane (``ops.sgm.kernel_planes``) at both image
+    edges, the D1 chunk, the code line. Against ``ops.sgm.sweep_plain``,
+    tolerance 0.0.
 """
 
 import re
@@ -34,7 +44,9 @@ torch = pytest.importorskip("torch")
 
 from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops import cost_volume as tcv  # noqa: E402
+from mccnn_tpu_torch.ops import sgm as tsgm  # noqa: E402
 from mccnn_tpu_torch.ops.common import BIG_COST  # noqa: E402
+from mccnn_tpu_torch.utils.config import MatchConfig  # noqa: E402
 
 from torch_parity import scene_pair, unit_features  # noqa: E402
 
@@ -48,20 +60,28 @@ def _constants(source: str) -> dict:
         r"constexpr int (k\w+) = (\d+);", text)}
 
 
-K2 = _constants("cbca_round.cu")
+WALK = _constants("cbca_walk.cuh")
+K2 = {**WALK, **_constants("cbca_round.cu")}
+K7 = {**WALK, **_constants("cbca_stencil.cu")}
 K1 = _constants("band.cu")
-# the radius up to which K2 runs its smaller instantiation, and the larger
+K3 = _constants("sgm_sweep.cu")
+# the radius up to which K2 and K7 run their smaller instantiation, and the
+# larger
 K2_SMALL_R = int(re.search(r"radius <= (\d+)",
                            (_CSRC / "cbca_round.cu").read_text()).group(1))
+K7_SMALL_R = int(re.search(r"radius <= (\d+)",
+                           (_CSRC / "cbca_stencil.cu").read_text()).group(1))
 K2_LARGE_R = _constants("cbca_arms.cuh")["kArmHalo"]
 
 
 def test_the_models_read_the_kernels_constants():
     assert {"kTileW", "kBatch", "kBandH", "kLpt", "kSkip"} <= set(K2)
     assert K2["kTileW"] == 32 and K2["kBatch"] == 16
-    assert (K2_SMALL_R, K2_LARGE_R) == (13, 16)
+    assert (K2_SMALL_R, K7_SMALL_R, K2_LARGE_R) == (13, 13, 16)
+    assert (K7["kBatch"], K7["kThreads"], K7["kBatchAt16"]) == (32, 512, 16)
     assert {"kChannels", "kChunkD", "kMmaTileW"} <= set(K1)
     assert K1["kChunkD"] == 128 and K1["kMmaTileW"] == 64
+    assert {"kRingBytes", "kMaxLines", "kMinLines", "kChunk"} <= set(K3)
 
 
 def _gated_sum(line, centre0, count, neg, pos, radius_r):
@@ -90,14 +110,18 @@ def _plane(values, rows, cols, fill=0):
 
 
 def k2_model(volume, arms, inv_region, distance, compute_dtype=None,
-             band_h=None):
-    """One round as ``cbca_round_kernel`` decomposes it (all lane chunks at
-    once: the lane offset d0 + lane is the kernel's only use of them)."""
-    tile_w, batch = K2["kTileW"], K2["kBatch"]
-    band_h = band_h or K2["kBandH"]
+             band_h=None, kernel=K2):
+    """One round as ``cbca_walk_kernel`` decomposes it (all lane chunks at
+    once: the lane offset d0 + lane is the kernel's only use of them), with
+    the step of K2 or, ``kernel=K7``, of K7."""
     radius = distance - 1
-    # the template parameter R
+    # the template parameter R, and the step height at that R
     reach = K2_SMALL_R if radius <= K2_SMALL_R else K2_LARGE_R
+    batch = kernel["kBatch"]
+    if kernel is K7 and reach > K7_SMALL_R:
+        batch = kernel["kBatchAt16"]
+    tile_w = kernel["kTileW"]
+    band_h = band_h or kernel["kBandH"]
     lag = -(-2 * reach // batch)
     ring_rows = (lag + 1) * batch
     height, width, depth = volume.shape
@@ -195,6 +219,20 @@ def test_k2_tiling_model_at_the_kernels_band_height(shape=(300, 40)):
                                atol=0)
 
 
+# K7's 32-row steps at R = 13 (radius 0, 1, 13) and K2's shape at R = 16,
+# with two ragged bands and at the kernel's band height
+@pytest.mark.parametrize("shape,distance,band_h", [
+    ((37, 70), 1, 64), ((37, 70), 2, 64), ((75, 70), 14, 64),
+    ((37, 70), 17, 32), ((300, 40), 14, None),
+])
+def test_k7_tiling_model_equals_plain_round(shape, distance, band_h):
+    volume, arms, inv = _round_case(*shape, 8, distance, torch.float32,
+                                    seed=24)
+    want = tcbca.cbca_round(volume, arms, inv, distance)
+    got = k2_model(volume, arms, inv, distance, band_h=band_h, kernel=K7)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("distance", [14, 17])
 def test_k2_tiling_model_with_arms_past_the_border(distance):
     volume, arms, inv = _round_case(37, 70, 4, distance, torch.float32,
@@ -273,3 +311,152 @@ def test_k1_tiling_model_equals_plain_band(shape, ndisp, d_pad, dtype, side):
     disps = torch.arange(ndisp)[None, :]
     valid = cols >= disps if side == "left" else cols + disps < width
     assert not bool(got[..., :ndisp][:, ~valid].any())
+
+
+def k3_lines(dtype, d_pad):
+    """Lines in a warp's ring (``Ring::kLines``)."""
+    line_bytes = d_pad * torch.empty(0, dtype=dtype).element_size()
+    return min(K3["kMaxLines"],
+               max(K3["kMinLines"], K3["kRingBytes"] // line_bytes))
+
+
+def k3_model(vol_in, vol_out, left_image, right_image, choice, direction,
+             config, codes=None):
+    """One sweep as ``sgm_sweep_kernel`` walks it, every fibre at once: the
+    ring of lines, the penalty bytes each slot or staged row holds, the
+    DP step of ``sweep_plain``. Returns the order of line reads and writes.
+    """
+    vertical, forward, p1_base, p2_base = tsgm._sweep_params(direction,
+                                                             config)
+    height, width, d_pad = vol_in.shape
+    lines = k3_lines(vol_in.dtype, d_pad)
+    chunk = K3["kChunk"]
+    left = choice == "L"
+    src = vol_in if vertical else vol_in.transpose(0, 1)
+    dst = vol_out if vertical else vol_out.transpose(0, 1)
+    size, perp = src.shape[0], src.shape[1]
+    first, step = (0, 1) if forward else (size - 1, -1)
+    fibres = torch.arange(perp)
+    disps = torch.arange(d_pad)
+    if codes is None:
+        d1, d2 = tsgm.kernel_planes(left_image, right_image, choice,
+                                    direction, d_pad, config.sgm_d)
+        pitch1, pitch2 = d1.shape[1], d2.shape[1]
+        assert pitch1 % chunk == 0 and pitch2 % chunk == 0
+    # a vertical sweep's D2 window starts at the run's first column, aligned
+    # down to a chunk
+    run_base = ((fibres + 1) if left else (fibres + d_pad)) // chunk * chunk
+    ring = [None] * lines
+    events = []
+
+    def request(n, slot):
+        s = first + n * step
+        events.append(("read", s))
+        if codes is not None:
+            penalty = codes[s]
+        elif vertical:
+            # the window and the D1 chunk of image row s, whole chunks
+            # inside the row
+            window = run_base[:, None] + torch.arange(d_pad + chunk)
+            own = (fibres // chunk * chunk)[:, None] + torch.arange(chunk)
+            assert int(window.max()) < pitch2 and int(own.max()) < pitch1
+            penalty = (d2[s][window], d1[s][own])
+        else:
+            penalty = None
+        ring[slot] = (s, src[s].clone(), penalty)
+
+    def fetch(n, slot):
+        ahead = n + lines - 1
+        if ahead < size:
+            request(ahead, (slot - 1) % lines)
+        s, line, penalty = ring[slot]
+        assert s == first + n * step  # the slot holds the line of this step
+        return s, line, penalty
+
+    for n in range(lines - 1):
+        if n < size:
+            request(n, n)
+    _, line, _ = fetch(0, 0)
+    prev = line.float()
+    if vol_out.data_ptr() != vol_in.data_ptr():
+        dst[first] = line
+        events.append(("write", first))
+    big = torch.full((perp, 1), BIG_COST)
+    slot = 1
+    for n in range(1, size):
+        s, line, penalty = fetch(n, slot)
+        if codes is not None:
+            cls = penalty.long()
+        else:
+            w = fibres[:, None] if vertical else s
+            column = w + d_pad - disps if left else w + d_pad + disps
+            if vertical:
+                window, own = penalty
+                offset = column - run_base[:, None]
+                assert int(offset.min()) >= 0
+                assert int(offset.max()) < d_pad + chunk
+                b2 = window.gather(1, offset)
+                b1 = own.gather(1, (fibres % chunk)[:, None])
+            else:  # the staged plane rows of image row p
+                b2 = d2[:, column]
+                b1 = d1[:, s][:, None]
+            cls = 2 - (b1 != 0).long() - (b2 != 0).long()
+        scale = torch.where(cls == 0, 1.0, torch.where(
+            cls == 1, 1.0 / config.sgm_q1, 1.0 / config.sgm_q2))
+        min_prev = prev.amin(dim=1, keepdim=True)
+        neighbor = torch.minimum(torch.cat([big, prev[:, :-1]], dim=1),
+                                 torch.cat([prev[:, 1:], big], dim=1))
+        candidate = torch.minimum(
+            torch.minimum(prev, neighbor + p1_base * scale),
+            min_prev + p2_base * scale)
+        prev = line.float() + candidate - min_prev
+        dst[s] = prev.to(vol_out.dtype)
+        events.append(("write", s))
+        slot = (slot + 1) % lines
+    return events
+
+
+def _sweep_case(height, width, d_pad, dtype, seed):
+    rng = np.random.default_rng(seed)
+    left, right, _, _ = scene_pair("textureless", max(height, 48),
+                                   max(width, 64), seed=5)
+    images = [torch.from_numpy(x)[:height, :width] for x in (left, right)]
+    values = rng.uniform(-1, 1, (height, width, d_pad)).astype(np.float32)
+    values[..., d_pad - 5:] = BIG_COST
+    return torch.from_numpy(values).to(dtype), images
+
+
+# rings of 16 lines (bf16 or f32 at D_pad 128) and 8 (f32 at 256) around
+# sweeps longer and shorter than the ring, one and two lines; in place (the
+# chained mode), out of place, on codes; all four directions, both volumes
+@pytest.mark.parametrize("shape,dtype,mode", [
+    ((19, 37, 128), torch.bfloat16, "in place"),
+    ((10, 9, 256), torch.float32, "out of place"),
+    ((17, 15, 128), torch.float32, "codes"),
+    ((1, 2, 128), torch.bfloat16, "in place"),
+])
+def test_k3_ring_model_equals_plain_sweep(shape, dtype, mode):
+    config = MatchConfig()
+    volume, images = _sweep_case(*shape, dtype, seed=25)
+    for choice in ("L", "R"):
+        for direction in tsgm._DIRECTIONS:
+            codes = None
+            if mode == "codes":
+                codes = tsgm.penalty_scale_u8(*images, choice, direction,
+                                              shape[2], config.sgm_d)
+            want = torch.empty_like(volume)
+            tsgm.sweep_plain(volume, want, *images, choice, direction,
+                             config, codes)
+            got = volume.clone() if mode == "in place" else \
+                torch.empty_like(volume)
+            source = got if mode == "in place" else volume
+            events = k3_model(source, got, *images, choice, direction,
+                              config, codes)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            # in place, every line is read before it is written, and once
+            reads = [line for kind, line in events if kind == "read"]
+            writes = [line for kind, line in events if kind == "write"]
+            assert sorted(reads) == list(range(len(reads)))
+            for line in writes:
+                assert events.index(("read", line)) < events.index(
+                    ("write", line))
