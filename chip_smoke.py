@@ -14,10 +14,10 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      two K1 launches; K8 and K9 in f32, bf16 and the bf16-operand mode, also
      against K2; K2 with the bf16-operand flag and at ragged shapes (37 x
      70 x 128, 301 x 45 x 384; radius 0, 1, 13, 16; f32, bf16, bf16
-     operands), K7 there too (also against K2), and K3 there in every
-     direction, in place and out of place, on planes and on codes; K3 on
-     penalty codes; K6 also against K5; K10's output against its input in
-     both layouts);
+     operands), K9 and K4 there too, K7 also against K2, and K3 there in
+     every direction, in place and out of place, on planes and on codes;
+     K3 on penalty codes; K6 also against K5; K10's output against its
+     input in both layouts);
   4. drives the serving path -- ``MatchPipeline.dispatch``/``fetch`` at
      1000 x 1504, ndisp 200, bf16 volumes, paper-default MatchConfig, the
      fast MC-CNN at full width with seeded random weights -- on one
@@ -47,8 +47,10 @@ Run from the checkout root on a machine with one NVIDIA H100. It
   7. holds each kernel against its plain version at the main-path shapes
      (1000 x 1504 x 256), times both with CUDA events (K2 per round in
      bf16, f32, with bf16 operands and with every arm at the radius, beside
-     K8, K7 with and without its 512-thread lever and K10's floor at the
-     tiling of K2 and K7; K1 per side in bf16 and f32; K3 in place as the
+     K8 in bf16, f32 and at full arms, K9 per pass in bf16, f32, with bf16
+     operands (path V3) and at full arms, K4 per 128-lane launch and at
+     full arms, K7 with and without its 512-thread lever and K10's floor at
+     the tiling of K2 and K7; K1 per side in bf16 and f32; K3 in place as the
      chained path launches it, out of place, and in f32), computes each
      kernel's bound from this run's inputs, and profiles one pair.
 
@@ -393,14 +395,21 @@ def check_ragged_rounds(device, errors: Errors) -> None:
     plain rounds where neither the 32-column strip, the 16-row step nor the
     256-row band divides the image, at radius 0, 1, 13 and 16, on one and
     three 128-lane chunks, in f32, bf16 and with bf16 operands on f32
-    storage; K7 (32-row steps) the same in f32, also against K2. The sums
+    storage; K9 one two-round pass the same, also against two K2 rounds;
+    K7 (32-row steps) in f32, also against K2; K4 two rounds on the f32
+    volume and on its int8 quantization (raw mode), BIG lanes 127. The sums
     run in the plain round's order, so the tolerance is 0.0. K3: every
     direction of both volumes, in place and out of place, on the planes and
     on codes, in f32 and bf16, where no ring or block of fibres divides the
     image (tolerance 0.0)."""
     import torch
     from mccnn_tpu_torch.ops.cbca import cbca, compute_arms
-    from mccnn_tpu_torch.ops.cbca_fused import cbca_fused
+    from mccnn_tpu_torch.ops.cbca_fused import (
+        _quantize_int8,
+        cbca_fused,
+        cbca_int8_plain,
+    )
+    from mccnn_tpu_torch.ops.cbca_fused2 import cbca_fused_two
     from mccnn_tpu_torch.ops.cbca_pallas import cbca_pallas
     from mccnn_tpu_torch.ops.common import BIG_COST
     from mccnn_tpu_torch.ops.sgm import (
@@ -436,6 +445,22 @@ def check_ragged_rounds(device, errors: Errors) -> None:
                 if got[..., d_pad - 28:].float().min().item() < 1e8:
                     raise AssertionError("cbca_round ragged: pad lanes fell "
                                          "below 1e8")
+                # K9: one pass, against the plain rounds and two K2 rounds
+                got9 = cbca_fused_two(operand, arms, 2, radius + 1,
+                                      compute_dtype=compute)
+                want2 = cbca(operand, arms, 2, radius + 1, compute)
+                err = (got9.float() - want2.float()).abs().max().item()
+                errors.record(
+                    "cbca_two_rounds",
+                    f"ragged {height}x{width}x{d_pad} r{radius} {mode}",
+                    err, 0.0)
+                if not torch.equal(got9, cbca_fused(
+                        operand, arms, 2, radius + 1, compute_dtype=compute)):
+                    raise AssertionError("cbca_two_rounds ragged: differs "
+                                         "from two cbca_round launches")
+                if got9[..., d_pad - 28:].float().min().item() < 1e8:
+                    raise AssertionError("cbca_two_rounds ragged: pad lanes "
+                                         "fell below 1e8")
                 if mode == "f32":
                     got7 = cbca_pallas(operand, arms, 3, radius + 1)
                     err = (got7 - want).abs().max().item()
@@ -446,6 +471,21 @@ def check_ragged_rounds(device, errors: Errors) -> None:
                     if not torch.equal(got7, got):
                         raise AssertionError("cbca_stencil_round ragged: "
                                              "differs from cbca_round")
+                    # K4 in the float mode and on pre-quantized int8 (raw):
+                    # exact integer math, BIG lanes stay 127
+                    raw = _quantize_int8(operand)[0]
+                    for kind, vol8 in (("float", operand), ("raw int8", raw)):
+                        got8 = cbca_fused(vol8, arms, 2, radius + 1,
+                                          int8_storage=True)
+                        want8 = cbca_int8_plain(vol8, arms, 2, radius + 1)
+                        err = (got8.float() - want8.float()).abs().max()
+                        errors.record(
+                            "cbca_round_int8",
+                            f"ragged {height}x{width}x{d_pad} r{radius} "
+                            f"{kind}", err.item(), 0.0)
+                    if not bool((got8[..., d_pad - 28:] == 127).all()):
+                        raise AssertionError("cbca_round_int8 ragged: BIG "
+                                             "lanes left 127")
         for dtype in (torch.float32, torch.bfloat16):
             operand = volume.to(dtype)
             worst = 0.0
@@ -1220,6 +1260,24 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         ("sgm_sweep", "ms_codes_build_horizontal", lambda: penalty_scale_u8(
             left, right, "L", (0, 1), d_pad, config.sgm_d)),
     )
+    # K9 on f32 storage, alone and with bf16 operands (path V3's launch),
+    # and K8 on f32 storage; K9 f32 equals two K2 rounds (tolerance 0.0)
+    twice32, spare32 = torch.empty_like(vol32), torch.empty_like(vol32)
+    cbca_two_rounds_cuda(vol32, twice32, arms, inv, distance)
+    cbca_round_cuda(vol32, out32, arms, inv, distance)
+    cbca_round_cuda(out32, spare32, arms, inv, distance)
+    errors.record("cbca_two_rounds", "left f32 vs two cbca_round",
+                  (twice32 - spare32).abs().max().item(), 0.0)
+    del twice32, spare32
+    extras += (
+        ("cbca_two_rounds", "ms_f32", lambda: cbca_two_rounds_cuda(
+            vol32, out32, arms, inv, distance)),
+        ("cbca_two_rounds", "ms_f32_bf16_operands",
+         lambda: cbca_two_rounds_cuda(vol32, out32, arms, inv, distance,
+                                      torch.bfloat16)),
+        ("cbca_rolling_round", "ms_f32", lambda: cbca_rolling_round_cuda(
+            vol32, out32, arms, inv, distance)),
+    )
     for name, key, fn in extras:
         times[name][key] = time_events(fn, 10)
         log(f"  {name:18s} {key:28s} {times[name][key]:.4f} ms")
@@ -1246,14 +1304,45 @@ def main_shape_kernels(device, errors: Errors) -> dict:
             lambda: fn(volume, spare, flat, flat_inv, distance), 10)
         log(f"  {name:18s} {'ms_full_arms':28s} "
             f"{times[name]['ms_full_arms']:.4f} ms")
-    del flat, flat_inv, spare
+    # K9 and K4 at full arms: a pass equals two K2 rounds, K4 its plain
+    # version (tolerance 0.0); then their times
+    twice = torch.empty_like(volume)
+    cbca_two_rounds_cuda(volume, twice, flat, flat_inv, distance)
+    cbca_round_cuda(volume, out, flat, flat_inv, distance)
+    cbca_round_cuda(out, spare, flat, flat_inv, distance)
+    errors.record("cbca_two_rounds", "left bf16, every arm at the radius",
+                  (twice.float() - spare.float()).abs().max().item(), 0.0)
+    cbca_round_int8_cuda(q_chunk, out8_chunk, flat, flat_inv, distance)
+    want8 = cbca_round_int8_plain(q_chunk, flat, flat_inv, distance)
+    errors.record("cbca_round_int8",
+                  "left 128-lane chunk, every arm at the radius",
+                  (out8_chunk.int() - want8.int()).abs().max().item(), 0.0)
+    del want8
+    for name, fn in (
+            ("cbca_two_rounds", lambda: cbca_two_rounds_cuda(
+                volume, twice, flat, flat_inv, distance)),
+            ("cbca_round_int8", lambda: cbca_round_int8_cuda(
+                q_chunk, out8_chunk, flat, flat_inv, distance))):
+        times[name]["ms_full_arms"] = time_events(fn, 10)
+        log(f"  {name:18s} {'ms_full_arms':28s} "
+            f"{times[name]['ms_full_arms']:.4f} ms")
+    del flat, flat_inv, spare, twice
     k2, k3 = times["cbca_round"], times["sgm_sweep"]
     log(f"  one CBCA round at {height} x {width} x {d_pad}: K2 bf16 "
         f"{k2['ms']:.4f}, f32 {k2['ms_f32']:.4f}, f32 with bf16 operands "
         f"{k2['ms_f32_bf16_operands']:.4f}, bf16 with every arm at the "
         f"radius {k2['ms_full_arms']:.4f} ms (this scene's arms sum to "
         f"{sum(a.float().mean().item() for a in arms):.3f} pixels per "
-        f"pixel); K8 bf16 {times['cbca_rolling_round']['ms']:.4f}, K7 f32 "
+        f"pixel); K8 bf16 {times['cbca_rolling_round']['ms']:.4f} (f32 "
+        f"{times['cbca_rolling_round']['ms_f32']:.4f}, every arm at the "
+        f"radius {times['cbca_rolling_round']['ms_full_arms']:.4f}); K9 per "
+        f"pass bf16 {times['cbca_two_rounds']['ms']:.4f}, f32 "
+        f"{times['cbca_two_rounds']['ms_f32']:.4f}, f32 with bf16 operands "
+        f"{times['cbca_two_rounds']['ms_f32_bf16_operands']:.4f}, every arm "
+        f"at the radius {times['cbca_two_rounds']['ms_full_arms']:.4f}; K4 "
+        f"per 128-lane launch {times['cbca_round_int8']['ms']:.4f}, every "
+        f"arm at the radius {times['cbca_round_int8']['ms_full_arms']:.4f}"
+        f" ms; K7 f32 "
         f"{times['cbca_stencil_round']['ms']:.4f} ms (without its lever "
         f"{k2['ms_f32']:.4f}); K10's floor at the tiling of K2 and K7 "
         f"{STREAM_TILES[walk_label]} {times['cbca_stream']['ms']:.4f} ms "
@@ -1307,6 +1396,13 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         times[name].update(bound_ms=ms, bound_by=by)
         log(f"  {name:18s} bound {ms:.4f} ms by {by}: the kernel takes "
             f"{times[name]['ms'] / ms:.1f} x that")
+    # K1's f32 route (path E): f32 descriptors in, an f32 band out, its
+    # multiply-adds at the f32 rate
+    ms, by = bound(2 * height * width * 64 * 4 + elements * 4, band_flop,
+                   "f32")
+    times["band_side"].update(bound_ms_f32=ms, bound_by_f32=by)
+    log(f"  {'band_side f32':18s} bound {ms:.4f} ms by {by}: the kernel "
+        f"takes {times['band_side']['ms_f32'] / ms:.1f} x that")
     return times
 
 
@@ -1351,6 +1447,10 @@ def profile_pair(pipeline) -> None:
 
 
 def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "mccnn_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():

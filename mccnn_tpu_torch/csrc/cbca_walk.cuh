@@ -1,6 +1,8 @@
 // The one-pass walk of a cross-based cost-aggregation (CBCA) round, shared
-// by K2 (cbca_round.cu: f32 and bf16 storage, the bf16-operand flag) and K7
-// (cbca_stencil.cu: exact f32):
+// by K2 (cbca_round.cu: f32 and bf16 storage, the bf16-operand flag), K7
+// (cbca_stencil.cu: exact f32) and K4 (cbca_round_int8.cu: int8 storage,
+// 16 lanes a block); K9 (cbca_two_round.cu) chains two of its walks from
+// the pieces below the kernel (request_row, h_walk, v_walk):
 //
 //   horiz[h, w, d] = sum over w + o, o in [-left(h,w), right(h,w)] of vol
 //   out[h, w, d]   = inv_region(h, w) *
@@ -92,9 +94,10 @@ constexpr int kPieceBytes = 16;  // per cp.async of volume data
 constexpr int kPlanes = 5;       // left, right, up, down, 1 / region
 constexpr int kSkip = 4;         // offsets per skippable group of adds
 
-template <typename T, int R, int kThreads, int kBatch>
+template <typename T, int R, int kThreads, int kBatch,
+          int kLanesPerBlock = kPixelBytes / sizeof(T)>
 struct Shape {
-  static constexpr int kLanes = kPixelBytes / sizeof(T);
+  static constexpr int kLanes = kLanesPerBlock;
   static constexpr int kGroups = kLanes / kLpt;  // lane pairs per pixel
   static constexpr int kCols = kTileW + 2 * R;   // raw columns per row
   // row strides, each padded by one pixel
@@ -140,6 +143,20 @@ __device__ __forceinline__ void load_pair(const __nv_bfloat16* p, bool,
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   v[0] = q.x;
   v[1] = q.y;
+}
+// int8 storage (K4): sums of at most 27 x 27 values of |q| <= 127 are exact
+// integers in f32, so the walk's f32 order changes nothing; the store rounds
+// half to even, as cbca_round_int8_plain does
+__device__ __forceinline__ void load_pair(const signed char* p, bool,
+                                          float (&v)[kLpt]) {
+  const char2 q = *reinterpret_cast<const char2*>(p);
+  v[0] = static_cast<float>(q.x);
+  v[1] = static_cast<float>(q.y);
+}
+__device__ __forceinline__ void store_pair(signed char* p, float a, float b) {
+  *reinterpret_cast<char2*>(p) =
+      make_char2(static_cast<signed char>(static_cast<int>(rintf(a))),
+                 static_cast<signed char>(static_cast<int>(rintf(b))));
 }
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -211,7 +228,77 @@ __device__ __forceinline__ void walk(Next next, Arms arms, Emit emit) {
   }
 }
 
-template <typename T, int R, int kThreads, int kBatch>
+// The pieces of a round, shared by the kernels that walk (K2, K7, K4 and,
+// two rounds chained, K9).
+
+// One row of `kCols` pixels (kLanes lanes each) from image column x0 by
+// 16-byte cp.async into `dst`, zero where the row (row_ok) or the column
+// lies outside the image. Called by the 32 lanes of one warp.
+template <typename T, int kLanes, int kCols>
+__device__ __forceinline__ void request_row(const T* vol, T* dst, int y,
+                                            bool row_ok, int x0, int width,
+                                            int d_pad, int d0, int lane) {
+  constexpr int kPieceLanes = kPieceBytes / sizeof(T);
+  constexpr int kPieces = kLanes / kPieceLanes;  // per pixel
+  static_assert(kPieces >= 1 && kLanes % kPieceLanes == 0,
+                "a pixel's lanes are whole 16-byte pieces");
+  const T* src_row =
+      vol + static_cast<size_t>(row_ok ? y : 0) * width * d_pad + d0;
+  for (int p = lane; p < kCols * kPieces; p += 32) {
+    const int x = x0 + p / kPieces;
+    const bool valid = row_ok && x >= 0 && x < width;
+    const T* src = valid ? src_row + static_cast<size_t>(x) * d_pad +
+                               (p % kPieces) * kPieceLanes
+                         : vol;
+    copy_async_16(dst + p * kPieceLanes, src, valid);
+  }
+}
+
+// H: the horizontal sums of kSteps neighbouring pixels of one row into
+// `sums`, lane pair by lane pair. `operand` is the window's first pixel
+// (R before the first centre), `arm` the first pixel's left arm, its right
+// arm `right` words further on.
+template <typename T, int R, int kSteps, int kLanes>
+__device__ __forceinline__ void h_walk(const T* operand, const int* arm,
+                                       int right, float* sums, int radius,
+                                       bool rounded) {
+  walk<R, kSteps>(
+      [&](float (&v)[kLpt]) {
+        load_pair(operand, rounded, v);
+        operand += kLanes;
+      },
+      [&](int s, int& neg, int& pos) {
+        neg = min(arm[s], radius);
+        pos = min(arm[right + s], radius);
+      },
+      [&](int s, const float (&acc)[kLpt]) {
+        store_pair(sums + s * kLanes, acc[0], acc[1]);
+      });
+}
+
+// V: the vertical sums of kSteps rows of one column down a ring of
+// kRingRows rows of horizontal sums (row stride kRingStride floats),
+// starting at ring row `slot` (R before the first centre). `arm` is the
+// first row's up arm, its down arm `down` words further on, rows
+// kPlaneStride words apart; emit(s, acc) takes the sum of row s.
+template <int R, int kSteps, int kRingRows, int kRingStride,
+          int kPlaneStride, typename Emit>
+__device__ __forceinline__ void v_walk(const float* column, int slot,
+                                       const int* arm, int down, int radius,
+                                       Emit emit) {
+  walk<R, kSteps>(
+      [&](float (&v)[kLpt]) {
+        load_pair(column + slot * kRingStride, false, v);
+        slot = slot + 1 == kRingRows ? 0 : slot + 1;
+      },
+      [&](int s, int& neg, int& pos) {
+        neg = min(arm[s * kPlaneStride], radius);
+        pos = min(arm[down + s * kPlaneStride], radius);
+      },
+      emit);
+}
+
+template <typename T, int R, int kThreads, int kBatch, int kLanes>
 __global__ void __launch_bounds__(kThreads, 1)
 cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
                   const int* __restrict__ arm_left,
@@ -220,7 +307,7 @@ cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
                   const int* __restrict__ arm_down,
                   const float* __restrict__ inv_region, int height, int width,
                   int d_pad, int radius, int round_operand) {
-  using S = Shape<T, R, kThreads, kBatch>;
+  using S = Shape<T, R, kThreads, kBatch, kLanes>;
   extern __shared__ __align__(16) unsigned char s_bytes[];
   float* s_ring = reinterpret_cast<float*>(s_bytes);
   T* s_raw = reinterpret_cast<T*>(s_bytes + S::kRingBytes);
@@ -245,25 +332,14 @@ cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
     T* raw = s_raw + stage * kBatch * S::kRawStride;
     const int y0 = y_base + j * kBatch;
     const int y_end = min(height, hb1 + R);
-    constexpr int kPieceLanes = kPieceBytes / sizeof(T);
-    constexpr int kPieces = S::kLanes / kPieceLanes;  // per pixel
     int* planes = s_planes + stage * kPlanes * S::kPlaneWords;
     const int o0 = hb0 + (j - S::kLag) * kBatch;
     // a warp takes whole rows: no division, one row test per row
     for (int row = warp; row < kBatch; row += kThreads / 32) {
       const int y = y0 + row;
-      const bool row_ok = y >= 0 && y < y_end;
-      const T* src_row =
-          vol + static_cast<size_t>(row_ok ? y : 0) * width * d_pad + d0;
-      T* dst_row = raw + row * S::kRawStride;
-      for (int p = lane; p < S::kCols * kPieces; p += 32) {
-        const int x = w0 - R + p / kPieces;
-        const bool valid = row_ok && x >= 0 && x < width;
-        const T* src = valid ? src_row + static_cast<size_t>(x) * d_pad +
-                                   (p % kPieces) * kPieceLanes
-                             : vol;
-        copy_async_16(dst_row + p * kPieceLanes, src, valid);
-      }
+      request_row<T, S::kLanes, S::kCols>(vol, raw + row * S::kRawStride, y,
+                                          y >= 0 && y < y_end, w0 - R, width,
+                                          d_pad, d0, lane);
       // one pixel of the strip per lane
       const int x = w0 + lane;
       int* at = planes + row * S::kPlaneStride + lane;
@@ -281,7 +357,7 @@ cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
   };
 
   // the thread's items: lane pair fastest, so a warp's accesses are runs of
-  // 32 bytes in 4 or 8 rows (H) or one run of 256 bytes (V)
+  // a pixel's bytes in several rows (H) or one run of whole pixels (V)
   const int h_group = tid % S::kGroups;
   const int h_row = (tid / S::kGroups) % kBatch;
   const int h_col0 = (tid / (S::kGroups * kBatch)) * S::kHSteps;
@@ -303,37 +379,21 @@ cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
 
     const int stage = j & 1;
     const int* planes = s_planes + stage * kPlanes * S::kPlaneWords;
-    {
-      // H: raw column c is image column w0 - R + c, so the window of output
-      // column h_col0 + s starts at raw column h_col0 + s
-      const T* operand = s_raw + stage * kBatch * S::kRawStride +
-                         h_row * S::kRawStride + h_col0 * S::kLanes +
-                         h_group * kLpt;
-      const int* arm = planes + h_row * S::kPlaneStride + h_col0;
-      float* sums = s_ring +
-                    ((j % (S::kLag + 1)) * kBatch + h_row) * S::kRingStride +
-                    h_col0 * S::kLanes + h_group * kLpt;
-      walk<R, S::kHSteps>(
-          [&](float (&v)[kLpt]) {
-            load_pair(operand, rounded, v);
-            operand += S::kLanes;
-          },
-          [&](int s, int& neg, int& pos) {
-            neg = min(arm[s], radius);
-            pos = min(arm[S::kPlaneWords + s], radius);
-          },
-          [&](int s, const float (&acc)[kLpt]) {
-            store_pair(sums + s * S::kLanes, acc[0], acc[1]);
-          });
-    }
+    // H: raw column c is image column w0 - R + c, so the window of output
+    // column h_col0 + s starts at raw column h_col0 + s
+    h_walk<T, R, S::kHSteps, S::kLanes>(
+        s_raw + stage * kBatch * S::kRawStride + h_row * S::kRawStride +
+            h_col0 * S::kLanes + h_group * kLpt,
+        planes + h_row * S::kPlaneStride + h_col0, S::kPlaneWords,
+        s_ring + ((j % (S::kLag + 1)) * kBatch + h_row) * S::kRingStride +
+            h_col0 * S::kLanes + h_group * kLpt,
+        radius, rounded);
     __syncthreads();
 
     if (j >= S::kLag) {
       // V: ring offset k is image row y_base + k, so the window of output
       // row o starts at offset o - hb0
       const int first = (j - S::kLag) * kBatch + v_row0;
-      int slot = first % S::kRingRows;
-      const float* column = s_ring + v_col * S::kLanes + v_group * kLpt;
       const int* arm = planes + 2 * S::kPlaneWords +
                        v_row0 * S::kPlaneStride + v_col;
       const int gw = w0 + v_col;
@@ -343,15 +403,9 @@ cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
                   (static_cast<size_t>(hb0 + first) * width + gw) * d_pad +
                   d0 + v_group * kLpt;
       const size_t row_pitch = static_cast<size_t>(width) * d_pad;
-      walk<R, S::kVSteps>(
-          [&](float (&v)[kLpt]) {
-            load_pair(column + slot * S::kRingStride, false, v);
-            slot = slot + 1 == S::kRingRows ? 0 : slot + 1;
-          },
-          [&](int s, int& neg, int& pos) {
-            neg = min(arm[s * S::kPlaneStride], radius);
-            pos = min(arm[S::kPlaneWords + s * S::kPlaneStride], radius);
-          },
+      v_walk<R, S::kVSteps, S::kRingRows, S::kRingStride, S::kPlaneStride>(
+          s_ring + v_col * S::kLanes + v_group * kLpt, first % S::kRingRows,
+          arm, S::kPlaneWords, radius,
           [&](int s, const float (&acc)[kLpt]) {
             const float inv = __int_as_float(
                 arm[2 * S::kPlaneWords + s * S::kPlaneStride]);
@@ -364,20 +418,21 @@ cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
   }
 }
 
-template <typename T, int R, int kThreads, int kBatch>
+template <typename T, int R, int kThreads, int kBatch,
+          int kLanes = kPixelBytes / sizeof(T)>
 cudaError_t launch_walk(const void* vol_in, void* vol_out, const int* arm_l,
                         const int* arm_r, const int* arm_u, const int* arm_d,
                         const float* inv, int height, int width, int d_pad,
                         int radius, int round_operand, cudaStream_t s) {
-  using S = Shape<T, R, kThreads, kBatch>;
+  using S = Shape<T, R, kThreads, kBatch, kLanes>;
   static bool shared_allowed[mccnn::kMaxDevices];
-  const cudaError_t err =
-      mccnn::allow_shared_once(cbca_walk_kernel<T, R, kThreads, kBatch>,
-                               S::kSharedBytes, shared_allowed);
+  const cudaError_t err = mccnn::allow_shared_once(
+      cbca_walk_kernel<T, R, kThreads, kBatch, kLanes>, S::kSharedBytes,
+      shared_allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(d_pad / S::kLanes, (width + kTileW - 1) / kTileW,
                   (height + kBandH - 1) / kBandH);
-  cbca_walk_kernel<T, R, kThreads, kBatch>
+  cbca_walk_kernel<T, R, kThreads, kBatch, kLanes>
       <<<grid, kThreads, S::kSharedBytes, s>>>(
       static_cast<const T*>(vol_in), static_cast<T*>(vol_out), arm_l, arm_r,
       arm_u, arm_d, inv, height, width, d_pad, radius, round_operand);

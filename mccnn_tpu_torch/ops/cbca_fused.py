@@ -49,7 +49,7 @@ from mccnn_tpu_torch.ops.common import BIG_COST
 _STORAGE = (torch.float32, torch.bfloat16)
 _LANES = 128  # disparities per K2 launch: D must be a multiple
 _BIG_CUTOFF = 1e8  # values at or above this are BIG_COST pad sentinels
-_INT8_LANES = 32  # disparities per K4 block: D must be a multiple
+_INT8_LANES = 32  # D must be a multiple (K4 takes 16 lanes a block)
 
 
 def cbca_round_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,

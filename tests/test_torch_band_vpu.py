@@ -19,9 +19,13 @@ from mccnn_tpu.ops.cost_volume_pallas import (  # noqa: E402
 from mccnn_tpu_torch.ops import cost_volume as tcv  # noqa: E402
 from mccnn_tpu_torch.ops.common import BIG_COST  # noqa: E402
 
-from torch_parity import unit_features  # noqa: E402
+from torch_parity import jitted, unit_features  # noqa: E402
 
 HEIGHT, WIDTH, D_PAD = 6, 20, 8
+# JAX's bands, compiled once per shape and static arguments
+jax_bands = jitted(jax_band_pair_pallas, "d_pad", "tile_h", "tile_w", "tile_d",
+                   "interpret", "use_mxu", "sides", "finalize_ndisp",
+                   "out_dtype")
 TILES = {"tile_h": 2, "tile_w": 8, "tile_d": 4, "interpret": True}
 
 
@@ -36,8 +40,8 @@ def test_vpu_bands_match_jax_and_direct_dots(features):
     left, right = tcv.band_pair_pallas(torch.from_numpy(fl),
                                        torch.from_numpy(fr), D_PAD,
                                        use_mxu=False)
-    want_l, want_r = jax_band_pair_pallas(jnp.asarray(fl), jnp.asarray(fr),
-                                          D_PAD, use_mxu=False, **TILES)
+    want_l, want_r = jax_bands(jnp.asarray(fl), jnp.asarray(fr), D_PAD,
+                               use_mxu=False, **TILES)
     assert left.shape == right.shape == (HEIGHT, WIDTH, D_PAD)
     assert left.dtype == torch.float32
     np.testing.assert_allclose(left.numpy(), np.asarray(want_l), atol=1e-5)
@@ -55,7 +59,7 @@ def test_vpu_out_dtype_casts_the_scores(features):
     left, right = tcv.band_pair_pallas(
         torch.from_numpy(fl), torch.from_numpy(fr), D_PAD, use_mxu=False,
         out_dtype=torch.bfloat16)
-    want_l, want_r = jax_band_pair_pallas(
+    want_l, want_r = jax_bands(
         jnp.asarray(fl), jnp.asarray(fr), D_PAD, use_mxu=False,
         out_dtype=jnp.bfloat16, **TILES)
     assert left.dtype == right.dtype == torch.bfloat16
@@ -74,9 +78,8 @@ def test_mxu_route_matches_jax(features, sides, finalize):
     fl, fr = features
     got = tcv.band_pair_pallas(torch.from_numpy(fl), torch.from_numpy(fr),
                                D_PAD, sides=sides, finalize_ndisp=finalize)
-    want = jax_band_pair_pallas(jnp.asarray(fl), jnp.asarray(fr), D_PAD,
-                                sides=sides, finalize_ndisp=finalize,
-                                **TILES)
+    want = jax_bands(jnp.asarray(fl), jnp.asarray(fr), D_PAD, sides=sides,
+                     finalize_ndisp=finalize, **TILES)
     if sides != "both":
         got, want = (got,), (want,)
     assert len(got) == len(want)

@@ -9,15 +9,19 @@ import importlib  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 
-from mccnn_tpu.ops.cbca_fused import cbca_fused as jax_cbca_fused  # noqa: E402
+from mccnn_tpu.ops import cbca_fused as jfused  # noqa: E402
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_fused import cbca_fused  # noqa: E402
 
-from torch_parity import scene_pair  # noqa: E402
+from torch_parity import jax_arms as jax_arms_of  # noqa: E402
+from torch_parity import jitted_round, scene_pair  # noqa: E402
 
 # the module, not the function mccnn_tpu.ops re-exports under its name
 jcbca = importlib.import_module("mccnn_tpu.ops.cbca")
+# the JAX rounds, each compiled once per shape and static arguments
+jax_cbca = jitted_round(jcbca.cbca)
+jax_cbca_fused = jitted_round(jfused.cbca_fused)
 
 # f32 sums of up to 27 x 27 terms of |v| <= 1 in another order (the Pallas
 # kernel contracts with matmuls): relative 1e-5, absolute 1e-4
@@ -32,7 +36,7 @@ def _image(height, width, seed=0):
 
 def _arms(image):
     port = tcbca.compute_arms(torch.from_numpy(image), TAU, DIST)
-    jax_arms = jcbca.compute_arms(jnp.asarray(image), TAU, DIST)
+    jax_arms = jax_arms_of(image, TAU, DIST)
     return port, jax_arms
 
 
@@ -60,7 +64,7 @@ def test_plain_cbca_matches_jax(rng, iterations):
     port_arms, jax_arms = _arms(image)
     vol = _volume(rng, 30, 44)
     got = tcbca.cbca(torch.from_numpy(vol), port_arms, iterations, DIST)
-    want = jcbca.cbca(jnp.asarray(vol), jax_arms, iterations, DIST)
+    want = jax_cbca(jnp.asarray(vol), jax_arms, iterations, DIST)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     assert float(got[..., 20:].min()) > 1e8  # pad lanes stay BIG
@@ -72,7 +76,7 @@ def test_plain_cbca_bf16_storage_matches_jax(rng):
     vol = _volume(rng, 30, 44)
     got = tcbca.cbca(torch.from_numpy(vol).to(torch.bfloat16), port_arms, 2,
                      DIST)
-    want = jcbca.cbca(jnp.asarray(vol, jnp.bfloat16), jax_arms, 2, DIST)
+    want = jax_cbca(jnp.asarray(vol, jnp.bfloat16), jax_arms, 2, DIST)
     assert got.dtype == torch.bfloat16
     # f32 accumulation, one bf16 rounding per round: the two may land on
     # neighbouring bf16 values (one ulp at |v| <= 1 is 2^-8)

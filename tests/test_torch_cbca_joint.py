@@ -6,8 +6,6 @@ time: rtol 1e-5 against JAX (measured: equal), rtol 1e-4 against the f64
 oracle (the JAX test's own tolerance).
 """
 
-import importlib
-
 import numpy as np
 import pytest
 
@@ -15,15 +13,16 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from mccnn_tpu.ops.cbca_joint import cbca_joint as jax_cbca_joint  # noqa: E402
+from mccnn_tpu.ops.cbca_joint import cbca_joint  # noqa: E402
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops import cbca_joint as tjoint  # noqa: E402
 
 from oracles import cross_regions_oracle, joint_cbca_oracle  # noqa: E402
-import torch_parity  # noqa: E402,F401  (pins torch to one thread)
+from torch_parity import jax_arms, jitted_round  # noqa: E402
 
-jcbca = importlib.import_module("mccnn_tpu.ops.cbca")
+# JAX's joint rounds, compiled once per shape and static arguments
+jax_cbca_joint = jitted_round(cbca_joint)
 
 
 def _padded(ref_volume, d_pad=8):
@@ -52,8 +51,8 @@ def test_matches_jax_and_the_oracle(rng, choice, iterations):
         iterations, dist, ndisp, choice).numpy()
     want = np.asarray(jax_cbca_joint(
         jnp.asarray(volume),
-        jcbca.compute_arms(jnp.asarray(self_img), tau, dist),
-        jcbca.compute_arms(jnp.asarray(other_img), tau, dist),
+        jax_arms(self_img, tau, dist),
+        jax_arms(other_img, tau, dist),
         iterations, dist, ndisp, choice))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
@@ -82,7 +81,7 @@ def test_disparity_chunks_do_not_change_the_result(rng, monkeypatch):
     torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
     want = np.asarray(jax_cbca_joint(
         jnp.asarray(volume),
-        *[jcbca.compute_arms(jnp.asarray(i), 0.8, dist)
+        *[jax_arms(i, 0.8, dist)
           for i in (left, right)], 2, dist, ndisp, "L"))
     np.testing.assert_allclose(whole.numpy(), want, rtol=1e-5, atol=1e-6)
 

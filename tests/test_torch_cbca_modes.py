@@ -16,16 +16,20 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from mccnn_tpu.ops import cbca_fused as jfused  # noqa: E402
-from mccnn_tpu.ops.cbca_pallas import cbca_pallas as jax_cbca_pallas  # noqa: E402
+from mccnn_tpu.ops.cbca_pallas import cbca_pallas as jcbca_pallas  # noqa: E402
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops import cbca_fused as tfused  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_pallas import cbca_pallas  # noqa: E402
 
-from torch_parity import scene_pair  # noqa: E402
+from torch_parity import jax_arms, jitted_round, scene_pair  # noqa: E402
 
 # the module, not the function mccnn_tpu.ops re-exports under its name
 jcbca = importlib.import_module("mccnn_tpu.ops.cbca")
+# the JAX rounds, each compiled once per shape and static arguments
+jax_cbca = jitted_round(jcbca.cbca)
+jax_cbca_pallas = jitted_round(jcbca_pallas)
+jax_cbca_int8 = jitted_round(jfused.cbca_int8_xla)
 
 TAU, DIST = 0.02, 14
 HEIGHT, WIDTH, NDISP = 48, 64, 16
@@ -36,7 +40,7 @@ _DTYPES = {"float32": (torch.float32, jnp.float32),
 def _arms(seed=0):
     image, _, _, _ = scene_pair("textureless", HEIGHT, WIDTH, seed)
     return (tcbca.compute_arms(torch.from_numpy(image), TAU, DIST),
-            jcbca.compute_arms(jnp.asarray(image), TAU, DIST))
+            jax_arms(image, TAU, DIST))
 
 
 def _volume(rng, d_pad=128, ndisp=NDISP):
@@ -52,7 +56,7 @@ def test_cbca_pallas_matches_jax_kernel_and_exact_cbca(rng, iterations):
     got = cbca_pallas(torch.from_numpy(vol), port_arms, iterations, DIST)
     kernel = jax_cbca_pallas(jnp.asarray(vol), jax_arms, iterations, DIST,
                              interpret=True)
-    exact = jcbca.cbca(jnp.asarray(vol), jax_arms, iterations, DIST)
+    exact = jax_cbca(jnp.asarray(vol), jax_arms, iterations, DIST)
     # f32 sums of up to 27 x 27 terms, the same order up to XLA's fusion
     for want in (kernel, exact):
         np.testing.assert_allclose(got.numpy()[..., :NDISP],
@@ -97,7 +101,7 @@ def test_cbca_int8_plain_bit_equal_to_jax(rng, iterations, dtype):
     vol = _volume(rng)
     got = tfused.cbca_int8_plain(torch.from_numpy(vol).to(tdtype), port_arms,
                                  iterations, DIST)
-    want = jfused.cbca_int8_xla(jnp.asarray(vol, jdtype), jax_arms,
+    want = jax_cbca_int8(jnp.asarray(vol, jdtype), jax_arms,
                                 iterations, DIST)
     assert got.dtype == tdtype
     # exact integer math between one quantization and one dequantization
@@ -117,7 +121,7 @@ def test_cbca_int8_raw_mode_bit_equal_to_jax(rng):
     q[..., NDISP:] = 127
     got = tfused.cbca_fused(torch.from_numpy(q), port_arms, 3, DIST,
                             int8_storage=True)
-    want = jfused.cbca_int8_xla(jnp.asarray(q), jax_arms, 3, DIST)
+    want = jax_cbca_int8(jnp.asarray(q), jax_arms, 3, DIST)
     assert got.dtype == torch.int8
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert bool((got[..., NDISP:] == 127).all())

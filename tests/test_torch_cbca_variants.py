@@ -28,11 +28,9 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from mccnn_tpu.ops.cbca_fused import cbca_fused as jax_cbca_fused  # noqa: E402
-from mccnn_tpu.ops.cbca_fused2 import cbca_fused_two as jax_fused_two  # noqa: E402
-from mccnn_tpu.ops.cbca_rolling import (  # noqa: E402
-    cbca_fused_rolling as jax_rolling,
-)
+from mccnn_tpu.ops import cbca_fused as jfused  # noqa: E402
+from mccnn_tpu.ops import cbca_fused2 as jfused2  # noqa: E402
+from mccnn_tpu.ops import cbca_rolling as jrolling  # noqa: E402
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_fused import cbca_fused  # noqa: E402
@@ -40,11 +38,18 @@ from mccnn_tpu_torch.ops.cbca_fused2 import cbca_fused_two  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_mxu import build_masks, cbca_mxu  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_rolling import cbca_fused_rolling  # noqa: E402
 
-import torch_parity  # noqa: E402,F401  (pins torch to one thread)
+from torch_parity import jax_arms, jitted, jitted_round  # noqa: E402
 
 # the modules, not the functions mccnn_tpu.ops re-exports under their names
 jcbca = importlib.import_module("mccnn_tpu.ops.cbca")
 jmxu = importlib.import_module("mccnn_tpu.ops.cbca_mxu")
+# the JAX kernels (interpret mode) and rounds, each compiled once per shape
+# and static arguments
+jax_cbca_fused = jitted_round(jfused.cbca_fused)
+jax_fused_two = jitted_round(jfused2.cbca_fused_two)
+jax_rolling = jitted_round(jrolling.cbca_fused_rolling)
+jax_cbca_mxu = jitted_round(jmxu.cbca_mxu)
+jax_build_masks = jitted(jmxu.build_masks)
 
 TAU, NDISP = 0.8, 5
 # (storage, compute_dtype) per mode, for torch and for JAX
@@ -62,7 +67,7 @@ def _case(rng, height, width, dist, d_pad=128):
     volume[:, :, :NDISP] = rng.normal(size=(height, width, NDISP))
     return (volume,
             tcbca.compute_arms(torch.from_numpy(image), TAU, dist),
-            jcbca.compute_arms(jnp.asarray(image), TAU, dist))
+            jax_arms(image, TAU, dist))
 
 
 def _assert_mode(mode, got, want):
@@ -133,10 +138,10 @@ def test_mxu_matches_jax(rng):
     horizontal sum, |sum| < 64: 2^-2, divided by a region of >= 1)."""
     volume, port_arms, jax_arms = _case(rng, 40, 60, 14)
     masks = build_masks(port_arms)
-    for ours, theirs in zip(masks, jmxu.build_masks(jax_arms)):
+    for ours, theirs in zip(masks, jax_build_masks(jax_arms)):
         np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
     got = cbca_mxu(torch.from_numpy(volume), port_arms, 2, 14, masks=masks)
-    want = jmxu.cbca_mxu(jnp.asarray(volume), jax_arms, 2, 14)
+    want = jax_cbca_mxu(jnp.asarray(volume), jax_arms, 2, 14)
     assert got.dtype == torch.float32
     got, want = got.numpy(), np.asarray(want)
     np.testing.assert_allclose(got[..., :NDISP], want[..., :NDISP],

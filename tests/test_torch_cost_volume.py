@@ -15,11 +15,14 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
-from mccnn_tpu.ops.cost_volume import cost_volume_pair as jax_cvp  # noqa: E402
+from mccnn_tpu.ops.cost_volume import cost_volume_pair  # noqa: E402
 from mccnn_tpu_torch.ops import cost_volume as tcv  # noqa: E402
 
 from oracles import cost_volume_oracle  # noqa: E402
-from torch_parity import unit_features  # noqa: E402
+from torch_parity import jitted, unit_features  # noqa: E402
+
+# JAX's cost volume, compiled once per shape and static arguments
+jax_cvp = jitted(cost_volume_pair, "ndisp", "method", "sides", "dtype")
 
 # |cost| <= 1 for unit descriptors: f32 sums in another order agree to a
 # few ulps (1e-5); bf16 results may round to neighbouring bf16 values

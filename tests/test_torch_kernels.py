@@ -804,3 +804,72 @@ def test_cbca_stencil_kernel_at_ragged_shapes(shape, radius):
                                rtol=0, atol=0)
     torch.testing.assert_close(vol, keep, rtol=0, atol=0)
     assert got[..., d_pad - 28:].min().item() >= 1e8
+
+
+def _flat_arms(height, width, distance, device):
+    """Every arm at the radius, capped at the border (a constant image)."""
+    return tcbca.compute_arms(torch.zeros((height, width), device=device),
+                              TAU, distance)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arms_kind", ["scene", "full"])
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("radius", RAGGED_RADII)
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_two_round_kernel_at_ragged_shapes(shape, radius, mode, arms_kind):
+    """K9 where neither its 32-column strip, 8-row step nor 256-row band
+    divides the image, at radius 0, 1, 13 and 16, on the scene's arms and
+    with every arm at the radius: one pass bit-equal to the plain rounds and
+    to two K2 rounds, the input untouched, pad lanes BIG."""
+    device = require_card()
+    dtype, compute = _MODES[mode]
+    height, width, d_pad = shape
+    distance = radius + 1
+    if arms_kind == "full":
+        arms = _flat_arms(height, width, distance, device)
+    else:
+        left, _ = _images(max(height, 48), max(width, 64))
+        arms = tcbca.compute_arms(left[:height, :width].to(device), TAU,
+                                  distance)
+    vol = _volume(np.random.default_rng(22), height, width, d_pad,
+                  d_pad - 28).to(device, dtype)
+    keep = vol.clone()
+    build.LAUNCHES.reset()
+    got = cbca_fused_two(vol, arms, 2, distance, compute_dtype=compute)
+    assert _launched() == {"cbca_two_rounds": 1}
+    torch.testing.assert_close(
+        got, tcbca.cbca(vol, arms, 2, distance, compute), rtol=0, atol=0)
+    torch.testing.assert_close(
+        got, cbca_fused(vol, arms, 2, distance, compute_dtype=compute),
+        rtol=0, atol=0)
+    torch.testing.assert_close(vol, keep, rtol=0, atol=0)
+    assert got[..., d_pad - 28:].float().min().item() >= 1e8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arms_kind", ["scene", "full"])
+@pytest.mark.parametrize("distance", [1, 14, 17])
+@pytest.mark.parametrize("d_pad", [32, 128, 256])
+def test_cbca_int8_kernel_at_depths(d_pad, distance, arms_kind):
+    """K4 (16 lanes a block) at D = 32, 128 and 256, radius 0, 13 and 16, on
+    the scene's arms and with every arm at the radius, in the raw and the
+    float modes: bit-equal to ``cbca_int8_plain``, BIG lanes 127."""
+    device = require_card()
+    height, width = 37, 70
+    if arms_kind == "full":
+        arms = _flat_arms(height, width, distance, device)
+    else:
+        left, _ = _images(48, 70)
+        arms = tcbca.compute_arms(left[:height].to(device), TAU, distance)
+    vol = _volume(np.random.default_rng(23), height, width, d_pad,
+                  d_pad - 5).to(device)
+    raw = _quantize_int8(vol)[0]
+    for operand in (raw, vol.to(torch.bfloat16)):
+        build.LAUNCHES.reset()
+        got = cbca_fused(operand, arms, 2, distance, int8_storage=True)
+        assert _launched() == {"cbca_round_int8": 2}
+        torch.testing.assert_close(
+            got, cbca_int8_plain(operand, arms, 2, distance), rtol=0, atol=0)
+    raw_out = cbca_fused(raw, arms, 1, distance, int8_storage=True)
+    assert bool((raw_out[..., d_pad - 5:] == 127).all())

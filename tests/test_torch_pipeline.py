@@ -50,8 +50,14 @@ def _port(case, **kwargs):
     return {k: v.float().numpy() for k, v in out.items()}
 
 
-def test_match_pair_f32_matches_jax(case):
-    got, want, ndisp = _port(case), case["want"], case["ndisp"]
+@pytest.fixture(scope="module")
+def port_f32(case):
+    """The port's default f32 pipeline on the case, volumes included."""
+    return _port(case)
+
+
+def test_match_pair_f32_matches_jax(case, port_f32):
+    got, want, ndisp = port_f32, case["want"], case["ndisp"]
     for name in ("left_volume", "right_volume"):
         # float reassociation only (rtol 1e-4); atol for costs near zero
         np.testing.assert_allclose(got[name][..., :ndisp],
@@ -73,10 +79,10 @@ def test_match_pair_bf16_within_budget_of_jax_f32(case):
 
 
 @pytest.mark.parametrize("cbca_impl", ["fused", "xla"])
-def test_cbca_impl_names_run_the_default_path(case, cbca_impl):
+def test_cbca_impl_names_run_the_default_path(case, port_f32, cbca_impl):
     """Every accepted name runs ``cbca_fused``: the same disparities."""
     got = _port(case, cbca_impl=cbca_impl)["disparity"]
-    np.testing.assert_array_equal(got, _port(case)["disparity"])
+    np.testing.assert_array_equal(got, port_f32["disparity"])
 
 
 @pytest.mark.parametrize("kwargs", [

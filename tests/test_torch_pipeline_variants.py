@@ -44,18 +44,33 @@ def net():
     return params_from_numpy(jax_params())
 
 
-@pytest.fixture(scope="module")
-def exact(small, net):
-    """The port's exact-f32 pipeline, volumes included."""
-    left, right, _, ndisp = small
+def _port(scene, net, config=None, **kwargs):
+    """The port's pipeline on the pair, volumes included."""
+    left, right, _, ndisp = scene
     out = match_pair(net, torch.from_numpy(left), torch.from_numpy(right),
-                     ndisp, return_volumes=True)
+                     ndisp, MatchConfig(**(config or {})), return_volumes=True,
+                     **kwargs)
     return {k: v.float().numpy() for k, v in out.items()}
 
 
-def _both(scene, net, config=None, **kwargs):
-    """The same pair through JAX and the port, volumes included; sgm_chunk
-    is JAX's semantics-neutral scan-unroll knob (1: a short compile)."""
+@pytest.fixture(scope="module")
+def exact(small, net):
+    """The port's exact-f32 pipeline, volumes included."""
+    return _port(small, net)
+
+
+@pytest.fixture(scope="module")
+def bf16_operand_runs(small, net):
+    """The port's pipeline with each option that rounds the operands to
+    bf16, once per module: two tests read each."""
+    return {impl: _port(small, net, cbca_impl=impl)
+            for impl in ("mxu", "fused16", "fused2_16", "rolling16")}
+
+
+def _both(scene, net, config=None, got=None, **kwargs):
+    """The same pair through JAX and the port (``got``, where the module
+    has run it already), volumes included; sgm_chunk is JAX's
+    semantics-neutral scan-unroll knob (1: a short compile)."""
     left, right, gt, ndisp = scene
     config = config or {}
     params = jax_params()
@@ -64,10 +79,8 @@ def _both(scene, net, config=None, **kwargs):
         params, a, b, ndisp, jax_config, return_volumes=True,
         **kwargs))(left, right)
     want = {k: np.asarray(v, np.float32) for k, v in out.items()}
-    out = match_pair(net, torch.from_numpy(left), torch.from_numpy(right),
-                     ndisp, MatchConfig(**config), return_volumes=True,
-                     **kwargs)
-    got = {k: v.float().numpy() for k, v in out.items()}
+    if got is None:
+        got = _port(scene, net, config, **kwargs)
     return got, want, gt, ndisp
 
 
@@ -83,8 +96,10 @@ def test_exact_f32_impl_matches_jax_and_the_default(small, net, exact,
 
 @pytest.mark.parametrize("cbca_impl",
                          ["mxu", "fused16", "fused2_16", "rolling16"])
-def test_bf16_operand_impl_within_budget(small, net, exact, cbca_impl):
-    got, want, gt, ndisp = _both(small, net, cbca_impl=cbca_impl)
+def test_bf16_operand_impl_within_budget(small, net, exact, bf16_operand_runs,
+                                        cbca_impl):
+    got, want, gt, ndisp = _both(small, net, got=bf16_operand_runs[cbca_impl],
+                                 cbca_impl=cbca_impl)
     assert np.isfinite(got["disparity"]).all()
     for name in ("left_volume", "right_volume"):
         assert got[name][..., ndisp:].min() >= 1e8
@@ -95,11 +110,9 @@ def test_bf16_operand_impl_within_budget(small, net, exact, cbca_impl):
     assert not np.array_equal(got["left_volume"], exact["left_volume"])
 
 
-def test_bf16_operand_impls_agree_inside_the_port(small, net):
+def test_bf16_operand_impls_agree_inside_the_port(bf16_operand_runs):
     """fused16, rolling16 and fused2_16 round at the same places."""
-    left, right, _, ndisp = small
-    maps = [match_pair(net, torch.from_numpy(left), torch.from_numpy(right),
-                       ndisp, cbca_impl=impl).numpy()
+    maps = [bf16_operand_runs[impl]["disparity"]
             for impl in ("fused16", "rolling16", "fused2_16")]
     np.testing.assert_array_equal(maps[0], maps[1])
     np.testing.assert_array_equal(maps[0], maps[2])

@@ -15,12 +15,21 @@ from mccnn_tpu_torch.ops import lr_check as tlr  # noqa: E402
 from mccnn_tpu_torch.ops.subpixel import subpixel_enhance  # noqa: E402
 from mccnn_tpu_torch.ops.wta import wta_disparity  # noqa: E402
 
-from torch_parity import scene_pair  # noqa: E402
+from torch_parity import jitted, scene_pair  # noqa: E402
 
 jfilters = importlib.import_module("mccnn_tpu.ops.filters")
 jlr = importlib.import_module("mccnn_tpu.ops.lr_check")
 jsub = importlib.import_module("mccnn_tpu.ops.subpixel")
 jwta = importlib.import_module("mccnn_tpu.ops.wta")
+# the JAX functions, each compiled once per shape and static arguments
+jax_wta = jitted(jwta.wta_disparity)
+jax_classify = jitted(jlr.classify, "ndisp")
+jax_lr_interpolate = jitted(jlr.lr_consistency_interpolate, "ndisp")
+jax_interpolate = jitted(jlr.interpolate)
+jax_subpixel = jitted(jsub.subpixel_enhance, "ndisp")
+jax_median = jitted(jfilters.median_filter, "filter_height", "filter_width")
+jax_bilateral = jitted(jfilters.bilateral_filter, "filter_height",
+                       "filter_width", "mean", "sigma", "threshold")
 
 NDISP = 12
 
@@ -52,7 +61,7 @@ def test_wta_first_occurrence_on_ties(rng, dtype):
             ).sum(-1).max() > 1  # ties are present
     tdtype = getattr(torch, dtype)
     got = wta_disparity(torch.from_numpy(vol).to(tdtype))
-    want = jwta.wta_disparity(jnp.asarray(vol, getattr(jnp, dtype)))
+    want = jax_wta(jnp.asarray(vol, getattr(jnp, dtype)))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -61,14 +70,14 @@ def test_classify_and_interpolate_match_jax(rng):
     left, right = _disparities(rng)
     got_status = tlr.classify(torch.from_numpy(left),
                               torch.from_numpy(right), NDISP)
-    want_status = jlr.classify(jnp.asarray(left), jnp.asarray(right), NDISP)
+    want_status = jax_classify(jnp.asarray(left), jnp.asarray(right), NDISP)
     np.testing.assert_array_equal(got_status.numpy(),
                                   np.asarray(want_status))
     assert set(np.unique(got_status.numpy())) == {0, 1, 2}
     got = tlr.lr_consistency_interpolate(torch.from_numpy(left),
                                          torch.from_numpy(right), NDISP)
-    want = jlr.lr_consistency_interpolate(jnp.asarray(left),
-                                          jnp.asarray(right), NDISP)
+    want = jax_lr_interpolate(jnp.asarray(left), jnp.asarray(right),
+                              NDISP)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -78,7 +87,7 @@ def test_interpolate_fills_from_the_right(rng):
     status[:, 5] = 2  # ... or keep their value when there is none
     disp = np.arange(18, dtype=np.float32).reshape(3, 6)
     got = tlr.interpolate(torch.from_numpy(disp), torch.from_numpy(status))
-    want = jlr.interpolate(jnp.asarray(disp), jnp.asarray(status))
+    want = jax_interpolate(jnp.asarray(disp), jnp.asarray(status))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got.numpy()[:, 2], disp[:, 3])
     np.testing.assert_array_equal(got.numpy()[:, 5], disp[:, 5])
@@ -93,7 +102,7 @@ def test_subpixel_f32_matches_jax(rng):
     disp[1, 1] = 1.0
     got = subpixel_enhance(torch.from_numpy(disp), torch.from_numpy(vol),
                            NDISP)
-    want = jsub.subpixel_enhance(jnp.asarray(disp), jnp.asarray(vol), NDISP)
+    want = jax_subpixel(jnp.asarray(disp), jnp.asarray(vol), NDISP)
     # one f32 division in another rounding path at most
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
@@ -110,8 +119,8 @@ def test_subpixel_may_leave_the_search_range_as_in_jax():
     disp = np.array([[1.0, NDISP - 2.0]], np.float32)
     got = subpixel_enhance(torch.from_numpy(disp), torch.from_numpy(vol),
                            NDISP).numpy()
-    want = np.asarray(jsub.subpixel_enhance(jnp.asarray(disp),
-                                            jnp.asarray(vol), NDISP))
+    want = np.asarray(jax_subpixel(jnp.asarray(disp), jnp.asarray(vol),
+                                   NDISP))
     # delta = +-2.01 / 0.02: one f32 division in another rounding path
     np.testing.assert_allclose(got, want, rtol=1e-5)
     assert got[0, 0] < -90 and got[0, 1] > NDISP + 90
@@ -124,8 +133,8 @@ def test_subpixel_bf16_volume_matches_jax(rng):
     disp = rng.integers(1, NDISP - 1, (20, 30)).astype(np.float32)
     got = subpixel_enhance(torch.from_numpy(disp),
                            torch.from_numpy(vol).to(torch.bfloat16), NDISP)
-    want = jsub.subpixel_enhance(jnp.asarray(disp),
-                                 jnp.asarray(vol, jnp.bfloat16), NDISP)
+    want = jax_subpixel(jnp.asarray(disp), jnp.asarray(vol, jnp.bfloat16),
+                        NDISP)
     assert got.dtype == torch.float32
     delta_got = disp - got.numpy()
     delta_want = disp - np.asarray(want)
@@ -140,13 +149,13 @@ def test_median_and_bilateral_match_jax(rng):
     image, _, _, _ = scene_pair("occlusion", 20, 30)
     disp = rng.uniform(0, NDISP, (20, 30)).astype(np.float32)
     got = tfilters.median_filter(torch.from_numpy(disp), 5, 5)
-    want = jfilters.median_filter(jnp.asarray(disp), 5, 5)
+    want = jax_median(jnp.asarray(disp), 5, 5)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     got = tfilters.bilateral_filter(torch.from_numpy(image),
                                     torch.from_numpy(disp), 5, 5, 0.0, 6.0,
                                     0.5)
-    want = jfilters.bilateral_filter(jnp.asarray(image), jnp.asarray(disp), 5,
-                                     5, 0.0, 6.0, 0.5)
+    want = jax_bilateral(jnp.asarray(image), jnp.asarray(disp), 5, 5, 0.0,
+                         6.0, 0.5)
     # weighted means of <= 25 terms summed in another order
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)

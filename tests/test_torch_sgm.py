@@ -13,9 +13,11 @@ from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu.utils.config import MatchConfig  # noqa: E402
 from mccnn_tpu_torch.ops import sgm as tsgm  # noqa: E402
 
-from torch_parity import scene_pair  # noqa: E402
+from torch_parity import jitted, scene_pair  # noqa: E402
 
 jsgm = importlib.import_module("mccnn_tpu.ops.sgm")
+# the JAX sweeps of one volume, compiled once per shape and static arguments
+jax_sgm_one_volume = jitted(jsgm._sgm_one_volume, "choice", "ndisp", "config")
 
 NDISP, D_PAD = 20, 128
 
@@ -59,7 +61,7 @@ def test_sgm_f32_matches_jax(rng, paper_mode, choice):
     left, right, vol = _inputs(rng)
     # sgm_chunk: JAX's semantics-neutral scan unroll, 1 for a short compile
     config = MatchConfig(sgm_paper_mode=paper_mode, sgm_chunk=1)
-    want = np.asarray(jsgm._sgm_one_volume(
+    want = np.asarray(jax_sgm_one_volume(
         jnp.asarray(vol), jnp.asarray(left), jnp.asarray(right), choice,
         NDISP, config))
     got = tsgm._sgm_one_volume(
@@ -76,7 +78,7 @@ def test_sgm_f32_matches_jax(rng, paper_mode, choice):
 def test_sgm_bf16_storage_matches_jax(rng, paper_mode):
     left, right, vol = _inputs(rng)
     config = MatchConfig(sgm_paper_mode=paper_mode, sgm_chunk=1)
-    want = np.asarray(jsgm._sgm_one_volume(
+    want = np.asarray(jax_sgm_one_volume(
         jnp.asarray(vol, jnp.bfloat16), jnp.asarray(left), jnp.asarray(right),
         "L", NDISP, config).astype(jnp.float32))
     got = tsgm._sgm_one_volume(

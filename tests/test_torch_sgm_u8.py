@@ -13,16 +13,18 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
-from mccnn_tpu.ops.sgm_pallas import (  # noqa: E402
-    penalty_scale_u8 as jax_penalty_scale_u8,
-)
+from mccnn_tpu.ops.sgm_pallas import penalty_scale_u8  # noqa: E402
 from mccnn_tpu.utils.config import MatchConfig as JaxMatchConfig  # noqa: E402
 from mccnn_tpu_torch.ops import sgm as tsgm  # noqa: E402
 from mccnn_tpu_torch.utils.config import MatchConfig  # noqa: E402
 
-from torch_parity import scene_pair  # noqa: E402
+from torch_parity import jitted, scene_pair  # noqa: E402
 
 jsgm = importlib.import_module("mccnn_tpu.ops.sgm")
+# the JAX functions, each compiled once per shape and static arguments
+jax_penalty_scale_u8 = jitted(penalty_scale_u8, "choice", "direction",
+                              "d_pad", "sgm_d")
+jax_sgm_one_volume = jitted(jsgm._sgm_one_volume, "choice", "ndisp", "config")
 
 NDISP, D_PAD = 20, 128
 
@@ -70,7 +72,7 @@ def test_sgm_on_codes_equals_sgm_on_planes(rng, paper_mode, choice, dtype):
 @pytest.mark.parametrize("paper_mode,choice", [(False, "R"), (True, "L")])
 def test_sgm_on_codes_matches_jax(rng, paper_mode, choice):
     left, right, vol = _inputs(rng)
-    want = np.asarray(jsgm._sgm_one_volume(
+    want = np.asarray(jax_sgm_one_volume(
         jnp.asarray(vol), jnp.asarray(left), jnp.asarray(right), choice,
         NDISP, JaxMatchConfig(sgm_paper_mode=paper_mode, sgm_chunk=1,
                               sgm_u8=True)))

@@ -1,5 +1,5 @@
-"""Torch models of the index arithmetic of kernels K2, K7, K1 and K3, on the
-CPU.
+"""Torch models of the index arithmetic of kernels K2, K7, K4, K9, K1 and
+K3, on the CPU.
 
 The CUDA kernels run only on a card, and only there are they held against
 their plain versions (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
@@ -18,6 +18,16 @@ are the model's own copy. One case per distinct piece of arithmetic:
     outside the image; horizontal sums into a ring of rows, vertical sums
     out of the ring a fixed number of steps later; sums in the plain
     round's order. Against ``ops.cbca.cbca_round``, tolerance 0.0.
+  * K4 (``csrc/cbca_round_int8.cu``): the same walk on an int8 stage of 16
+    lanes a block, the sums exact, the store rounded half to even. Against
+    ``ops.cbca_fused.cbca_round_int8_plain``, tolerance 0.0.
+  * K9 (``csrc/cbca_two_round.cu``): two walks chained per strip: round A
+    on the 64 columns round B can reach, from raw rows with a halo of 2R
+    columns and rows; its vertical sums emitted into an intermediate stage,
+    rounded to the storage type and 0 outside the image; round B's
+    horizontal sums on that stage one step later, its vertical sums a lag
+    behind them. Against two ``ops.cbca.cbca_round`` calls, tolerance 0.0,
+    in f32, bf16 and the bf16-operand mode.
   * K1 (``csrc/band.cu``, bf16 route): per (64-column tile, 128-disparity
     chunk) the correlation of the anchor tile with a (64 + 128)-column
     context window, the band read off its diagonals per 16-row warp tile of
@@ -45,6 +55,9 @@ torch = pytest.importorskip("torch")
 from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops import cost_volume as tcv  # noqa: E402
 from mccnn_tpu_torch.ops import sgm as tsgm  # noqa: E402
+from mccnn_tpu_torch.ops.cbca_fused import (  # noqa: E402
+    cbca_round_int8_plain,
+)
 from mccnn_tpu_torch.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu_torch.utils.config import MatchConfig  # noqa: E402
 
@@ -63,6 +76,8 @@ def _constants(source: str) -> dict:
 WALK = _constants("cbca_walk.cuh")
 K2 = {**WALK, **_constants("cbca_round.cu")}
 K7 = {**WALK, **_constants("cbca_stencil.cu")}
+K4 = {**WALK, **_constants("cbca_round_int8.cu")}
+K9 = {**WALK, **_constants("cbca_two_round.cu")}
 K1 = _constants("band.cu")
 K3 = _constants("sgm_sweep.cu")
 # the radius up to which K2 and K7 run their smaller instantiation, and the
@@ -72,6 +87,9 @@ K2_SMALL_R = int(re.search(r"radius <= (\d+)",
 K7_SMALL_R = int(re.search(r"radius <= (\d+)",
                            (_CSRC / "cbca_stencil.cu").read_text()).group(1))
 K2_LARGE_R = _constants("cbca_arms.cuh")["kArmHalo"]
+K4_SMALL_R, K9_SMALL_R = (
+    int(re.search(r"radius <= (\d+)", (_CSRC / name).read_text()).group(1))
+    for name in ("cbca_round_int8.cu", "cbca_two_round.cu"))
 
 
 def test_the_models_read_the_kernels_constants():
@@ -79,6 +97,9 @@ def test_the_models_read_the_kernels_constants():
     assert K2["kTileW"] == 32 and K2["kBatch"] == 16
     assert (K2_SMALL_R, K7_SMALL_R, K2_LARGE_R) == (13, 13, 16)
     assert (K7["kBatch"], K7["kThreads"], K7["kBatchAt16"]) == (32, 512, 16)
+    assert (K4["kBatch"], K4["kThreads"], K4["kLanes"]) == (16, 256, 16)
+    assert (K9["kLanes2"], K9["kBatch2"], K9["kSegCols"]) == (8, 8, 8)
+    assert (K4_SMALL_R, K9_SMALL_R) == (13, 13)
     assert {"kChannels", "kChunkD", "kMmaTileW"} <= set(K1)
     assert K1["kChunkD"] == 128 and K1["kMmaTileW"] == 64
     assert {"kRingBytes", "kMaxLines", "kMinLines", "kChunk"} <= set(K3)
@@ -109,11 +130,19 @@ def _plane(values, rows, cols, fill=0):
     return out
 
 
+def _store(values, dtype):
+    """A round's store into the storage type: int8 rounds half to even."""
+    if dtype == torch.int8:
+        values = torch.round(values)
+    return values.to(dtype)
+
+
 def k2_model(volume, arms, inv_region, distance, compute_dtype=None,
              band_h=None, kernel=K2):
     """One round as ``cbca_walk_kernel`` decomposes it (all lane chunks at
     once: the lane offset d0 + lane is the kernel's only use of them), with
-    the step of K2 or, ``kernel=K7``, of K7."""
+    the step of K2 or, ``kernel=K7``, of K7, or ``kernel=K4``, of K4 on an
+    int8 volume."""
     radius = distance - 1
     # the template parameter R, and the step height at that R
     reach = K2_SMALL_R if radius <= K2_SMALL_R else K2_LARGE_R
@@ -165,7 +194,7 @@ def k2_model(volume, arms, inv_region, distance, compute_dtype=None,
                                   reach).permute(1, 0, 2)
                 keep_r = out_rows < hb1
                 keep_c = out_cols < width
-                result = (sums * inv[..., None]).to(volume.dtype)
+                result = _store(sums * inv[..., None], volume.dtype)
                 out[out_rows[keep_r][:, None], out_cols[keep_c][None, :]] = \
                     result[keep_r][:, keep_c]
                 written[out_rows[keep_r][:, None],
@@ -230,6 +259,159 @@ def test_k7_tiling_model_equals_plain_round(shape, distance, band_h):
                                     seed=24)
     want = tcbca.cbca_round(volume, arms, inv, distance)
     got = k2_model(volume, arms, inv, distance, band_h=band_h, kernel=K7)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# K4: int8 volumes (BIG lanes 127) at both radius splits, a ragged shape
+@pytest.mark.parametrize("shape,distance", [((37, 70), 14), ((37, 70), 17)])
+def test_k4_tiling_model_equals_plain_int8_round(shape, distance):
+    volume, arms, inv = _round_case(*shape, 16, distance, torch.float32,
+                                    seed=26)
+    q = torch.clamp(torch.round(volume * 100), -126, 127).to(torch.int8)
+    want = cbca_round_int8_plain(q, arms, inv, distance)
+    got = k2_model(q, arms, inv, distance, band_h=32, kernel=K4)
+    assert got.dtype == torch.int8 and bool((got[..., -3:] == 127).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def k9_shape(reach):
+    """Constants of ``TwoShape``: A's columns, raw columns, lag, ring rows,
+    and the shared bytes of a block in each storage type."""
+    lanes, batch = K9["kLanes2"], K9["kBatch2"]
+    cols_a = K9["kTileW"] + 2 * K2_LARGE_R
+    raw_cols = cols_a + 2 * reach
+    lag = -(-2 * reach // batch)
+    ring_rows = (lag + 1) * batch
+    planes = 4 * 2 * K9["kPlanes"] * batch * (cols_a + 1 + K9["kTileW"] + 1)
+    rings = 4 * ring_rows * lanes * (cols_a + 1 + K9["kTileW"] + 1)
+    shared = {size: rings + planes + size * lanes * batch * (
+        2 * (raw_cols + 1) + cols_a + 1) for size in (2, 4)}
+    return cols_a, raw_cols, lag, ring_rows, shared
+
+
+def test_k9_shape_fits_the_block_as_its_note_says():
+    note = (_CSRC / "cbca_two_round.cu").read_text()
+    for reach, bf16, f32 in ((K9_SMALL_R, "188,416", "220,032"),
+                             (K2_LARGE_R, "189,952", "223,104")):
+        cols_a, _, lag, ring_rows, shared = k9_shape(reach)
+        assert (cols_a, lag, ring_rows) == (64, 4, 40)
+        assert shared[2] == int(bf16.replace(",", "")) and bf16 in note
+        assert shared[4] == int(f32.replace(",", "")) and f32 in note
+        assert shared[4] <= 232448
+    # every thread walks once per phase: A's warps, then B's
+    seg = K9["kSegCols"]
+    assert 32 * (cols_a // seg + K9["kTileW"] // seg) == 384
+
+
+def k9_model(volume, arms, inv_region, distance, compute_dtype=None,
+             band_h=None):
+    """One pass as ``cbca_two_round_kernel`` decomposes it: per strip and
+    band, walk A over the 64 columns B can reach, its V emitting into an
+    intermediate stage that walk B's H reads one step later."""
+    radius = distance - 1
+    reach = K9_SMALL_R if radius <= K9_SMALL_R else K2_LARGE_R
+    tile_w, batch = K9["kTileW"], K9["kBatch2"]
+    band_h = band_h or K9["kBandH"]
+    cols_a, raw_cols, lag, ring_rows, _ = k9_shape(reach)
+    height, width, depth = volume.shape
+    operand = volume.float()
+    if compute_dtype == torch.bfloat16:
+        operand = operand.to(torch.bfloat16).float()
+
+    def as_operand(stage):  # round B's operand, as round A's
+        stage = stage.float()
+        if compute_dtype == torch.bfloat16:
+            stage = stage.to(torch.bfloat16).float()
+        return stage
+
+    def arm(plane, rows, cols):
+        return _plane(plane, rows, cols).clamp(max=radius)
+
+    out = torch.zeros_like(volume)
+    written = torch.zeros((height, width), dtype=torch.int32)
+    for hb0 in range(0, height, band_h):
+        hb1 = min(hb0 + band_h, height)
+        ya0, yb0 = hb0 - 2 * reach, hb0 - reach
+        steps = -(-(hb1 - hb0) // batch) + 2 * lag + 1
+        for w0 in range(0, width, tile_w):
+            ring_a = torch.full((ring_rows, cols_a, depth), float("nan"))
+            ring_b = torch.full((ring_rows, tile_w, depth), float("nan"))
+            stage = None
+            raw_x = torch.arange(w0 - 2 * reach, w0 - 2 * reach + raw_cols)
+            a_x = torch.arange(w0 - reach, w0 - reach + cols_a)
+            b_x = torch.arange(w0, w0 + tile_w)
+            for j in range(steps):
+                jb = j - 1 - lag
+                rows = ya0 + j * batch + torch.arange(batch)
+                raw = torch.zeros((batch, raw_cols, depth))
+                ok_r = (rows >= 0) & (rows < min(height, hb1 + 2 * reach))
+                ok_c = (raw_x >= 0) & (raw_x < width)
+                raw[ok_r[:, None] & ok_c[None, :]] = operand[
+                    rows[ok_r]][:, raw_x[ok_c]].reshape(-1, depth)
+                # phase 1: A's H into ring A; B's H on the stage A's V
+                # filled one step before
+                slot = (j % (lag + 1)) * batch
+                ring_a[slot:slot + batch] = _gated_sum(
+                    raw, reach, cols_a, arm(arms.left, rows, a_x),
+                    arm(arms.right, rows, a_x), reach)
+                if jb >= 0:
+                    b_rows = yb0 + jb * batch + torch.arange(batch)
+                    slot = (jb % (lag + 1)) * batch
+                    ring_b[slot:slot + batch] = _gated_sum(
+                        as_operand(stage), reach, tile_w,
+                        arm(arms.left, b_rows, b_x),
+                        arm(arms.right, b_rows, b_x), reach)
+                # phase 2: A's V into the stage; B's V into the output
+                if j >= lag:
+                    first = (j - lag) * batch
+                    o = yb0 + first + torch.arange(batch)
+                    slots = (first + torch.arange(batch + 2 * reach)) \
+                        % ring_rows
+                    sums = _gated_sum(
+                        ring_a[slots].permute(1, 0, 2), reach, batch,
+                        arm(arms.up, o, a_x).T, arm(arms.down, o, a_x).T,
+                        reach).permute(1, 0, 2)
+                    inv = _plane(inv_region, o, a_x, 0.0)
+                    inside = ((o >= 0) & (o < height))[:, None] & \
+                        ((a_x >= 0) & (a_x < width))[None, :]
+                    stage = torch.where(inside[..., None],
+                                        sums * inv[..., None],
+                                        0.0).to(volume.dtype)
+                if jb >= lag:
+                    first = (jb - lag) * batch
+                    o = hb0 + first + torch.arange(batch)
+                    slots = (first + torch.arange(batch + 2 * reach)) \
+                        % ring_rows
+                    sums = _gated_sum(
+                        ring_b[slots].permute(1, 0, 2), reach, batch,
+                        arm(arms.up, o, b_x).T, arm(arms.down, o, b_x).T,
+                        reach).permute(1, 0, 2)
+                    inv = _plane(inv_region, o, b_x, 0.0)
+                    keep_r, keep_c = o < hb1, b_x < width
+                    result = (sums * inv[..., None]).to(volume.dtype)
+                    out[o[keep_r][:, None], b_x[keep_c][None, :]] = \
+                        result[keep_r][:, keep_c]
+                    written[o[keep_r][:, None], b_x[keep_c][None, :]] += 1
+    assert bool((written == 1).all())  # every pixel stored exactly once
+    return out
+
+
+# the radius splits at a ragged shape with two bands (f32), the three
+# operand modes, and arms that run past the border (they add the zeros the
+# intermediate holds outside the image)
+@pytest.mark.parametrize("shape,distance,mode,capped", [
+    ((37, 70), 2, "f32", True), ((37, 70), 14, "f32", True),
+    ((37, 70), 17, "bf16", True), ((37, 40), 14, "mixed", True),
+    ((37, 40), 17, "f32", False),
+])
+def test_k9_tiling_model_equals_two_plain_rounds(shape, distance, mode,
+                                                 capped):
+    dtype, compute = _ROUND_MODES[mode]
+    volume, arms, inv = _round_case(*shape, 4, distance, dtype, seed=27,
+                                    capped=capped)
+    once = tcbca.cbca_round(volume, arms, inv, distance, compute)
+    want = tcbca.cbca_round(once, arms, inv, distance, compute)
+    got = k9_model(volume, arms, inv, distance, compute, band_h=24)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 

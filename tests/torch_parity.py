@@ -2,13 +2,18 @@
 
 Inputs are made with numpy from a seed and handed to both packages; the
 JAX weights come from ``init_params(jax.random.key(0))`` and cross over
-through ``params_from_numpy``.
+through ``params_from_numpy``. ``jitted`` compiles a JAX reference once per
+shape and static arguments, where run op by op it would compile each of its
+ops anew on every call.
 
 Importing this module pins torch to one intra-op thread: the suite runs in
 several worker processes at once, and torch's default of one thread per
 core in each of them oversubscribes the machine (the pipeline tests then
 take minutes instead of seconds).
 """
+
+import functools
+import inspect
 
 import numpy as np
 import pytest
@@ -25,6 +30,42 @@ def jax_params(config=None):
 
     args = (config,) if config is not None else ()
     return jax.tree.map(np.asarray, init_params(jax.random.key(0), *args))
+
+
+@functools.lru_cache(maxsize=None)
+def jitted(fn, *static):
+    """``jax.jit(fn)`` with the arguments named in ``static`` static, made
+    once per function and names, so a reference compiles once per shape and
+    static values. Run op by op, the JAX functions compile each of their
+    many small ops anew (every shift of a stencil, every fill of a border):
+    most of the CPU time of the tests that compare the port with them."""
+    import jax
+
+    return jax.jit(fn, static_argnames=static)
+
+
+# the static arguments of the JAX CBCA functions
+_ROUND_STATIC = ("num_iterations", "distance_threshold", "tile_h",
+                 "interpret", "compute_dtype", "ndisp", "choice")
+
+
+def jitted_round(fn):
+    """``jitted`` for a JAX CBCA function: static in those of its arguments
+    that set the rounds, the radius, the tiling and the mode."""
+    names = inspect.signature(fn).parameters
+    return jitted(fn, *(name for name in _ROUND_STATIC if name in names))
+
+
+def jax_arms(image, intensity_threshold, distance_threshold):
+    """JAX ``compute_arms`` of an (H, W) image (integer results)."""
+    import importlib
+
+    # the module, not the function mccnn_tpu.ops re-exports under its name
+    jcbca = importlib.import_module("mccnn_tpu.ops.cbca")
+    return jitted(jcbca.compute_arms, "intensity_threshold",
+                  "distance_threshold")(
+        np.asarray(image, np.float32), intensity_threshold,
+        distance_threshold)
 
 
 def unit_features(rng, height, width, channels=64):
