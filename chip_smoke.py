@@ -14,7 +14,7 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      two K1 launches; K8 and K9 in f32, bf16 and the bf16-operand mode, also
      against K2; K2 with the bf16-operand flag and at ragged shapes (37 x
      70 x 128, 301 x 45 x 384; radius 0, 1, 13, 16; f32, bf16, bf16
-     operands), K9 and K4 there too, K7 also against K2, and K3 there in
+     operands), K8, K9 and K4 there too, K7 also against K2, and K3 there in
      every direction, in place and out of place, on planes and on codes;
      K3 on penalty codes; K6 also against K5; K10's output against its
      input in both layouts);
@@ -47,11 +47,12 @@ Run from the checkout root on a machine with one NVIDIA H100. It
   7. holds each kernel against its plain version at the main-path shapes
      (1000 x 1504 x 256), times both with CUDA events (K2 per round in
      bf16, f32, with bf16 operands and with every arm at the radius, beside
-     K8 in bf16, f32 and at full arms, K9 per pass in bf16, f32, with bf16
-     operands (path V3) and at full arms, K4 per 128-lane launch and at
-     full arms, K7 with and without its 512-thread lever and K10's floor at
-     the tiling of K2 and K7; K1 per side in bf16 and f32; K3 in place as the
-     chained path launches it, out of place, and in f32), computes each
+     K8 in bf16, f32, with bf16 operands (path V4's launch) and at full
+     arms, K9 per pass in bf16, f32, with bf16 operands (path V3) and at
+     full arms, K4 per 128-lane launch and at full arms, K7 with and
+     without its 512-thread lever and K10's floor at the tiling of K2 and
+     K7; K1 per side in bf16 and f32; K3 in place as the chained path
+     launches it, out of place, and in f32), computes each
      kernel's bound from this run's inputs, and profiles one pair.
 
 Every failed phase raises, so the exit code is non-zero; without a CUDA
@@ -395,7 +396,8 @@ def check_ragged_rounds(device, errors: Errors) -> None:
     plain rounds where neither the 32-column strip, the 16-row step nor the
     256-row band divides the image, at radius 0, 1, 13 and 16, on one and
     three 128-lane chunks, in f32, bf16 and with bf16 operands on f32
-    storage; K9 one two-round pass the same, also against two K2 rounds;
+    storage; K8 three rounds the same, also against K2; K9 one two-round
+    pass the same, also against two K2 rounds;
     K7 (32-row steps) in f32, also against K2; K4 two rounds on the f32
     volume and on its int8 quantization (raw mode), BIG lanes 127. The sums
     run in the plain round's order, so the tolerance is 0.0. K3: every
@@ -411,6 +413,7 @@ def check_ragged_rounds(device, errors: Errors) -> None:
     )
     from mccnn_tpu_torch.ops.cbca_fused2 import cbca_fused_two
     from mccnn_tpu_torch.ops.cbca_pallas import cbca_pallas
+    from mccnn_tpu_torch.ops.cbca_rolling import cbca_fused_rolling
     from mccnn_tpu_torch.ops.common import BIG_COST
     from mccnn_tpu_torch.ops.sgm import (
         _DIRECTIONS,
@@ -445,6 +448,21 @@ def check_ragged_rounds(device, errors: Errors) -> None:
                 if got[..., d_pad - 28:].float().min().item() < 1e8:
                     raise AssertionError("cbca_round ragged: pad lanes fell "
                                          "below 1e8")
+                # K8: three rounds, against the plain rounds and K2 (every
+                # ragged depth is whole 128-lane chunks, which K2 takes)
+                got8 = cbca_fused_rolling(operand, arms, 3, radius + 1,
+                                          compute_dtype=compute)
+                err = (got8.float() - want.float()).abs().max().item()
+                errors.record(
+                    "cbca_rolling_round",
+                    f"ragged {height}x{width}x{d_pad} r{radius} {mode}",
+                    err, 0.0)
+                if d_pad % 128 == 0 and not torch.equal(got8, got):
+                    raise AssertionError("cbca_rolling_round ragged: differs "
+                                         "from cbca_round")
+                if got8[..., d_pad - 28:].float().min().item() < 1e8:
+                    raise AssertionError("cbca_rolling_round ragged: pad "
+                                         "lanes fell below 1e8")
                 # K9: one pass, against the plain rounds and two K2 rounds
                 got9 = cbca_fused_two(operand, arms, 2, radius + 1,
                                       compute_dtype=compute)
@@ -964,9 +982,9 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     runs them, K4 timed on the 128-lane chunk the d-chunked run hands it;
     K8 and K9 in bf16 as the variant runs launch them, K9 per two-round
     pass; K6 on the f32 descriptors; K10 in bf16, flat, at K7's and K2's
-    tile shapes on the volume padded to whole tiles; K2 with bf16 operands
-    on f32 storage and K3 on penalty codes): outputs, then times and
-    bounds."""
+    tile shapes on the volume padded to whole tiles; K2 and K8 in f32 and
+    with bf16 operands on f32 storage, and K3 on penalty codes): outputs,
+    then times and bounds."""
     import torch
     from mccnn_tpu_torch.ops.cbca import (
         cbca_round,
@@ -1109,17 +1127,21 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         cbca_stencil_round_cuda(vol32, got, arms, inv, distance)
         compare("cbca_stencil_round", f"{side} f32", got,
                 cbca_round(vol32, arms, inv, distance), 0.0)
-        # K2 on f32 storage equals K7; then with bf16 operands (tolerance
-        # 0.0)
-        fused32 = torch.empty_like(vol32)
-        cbca_round_cuda(vol32, fused32, arms, inv, distance)
-        if not torch.equal(fused32, got):
-            raise AssertionError("cbca_round f32 differs from "
-                                 "cbca_stencil_round")
-        del fused32
-        cbca_round_cuda(vol32, got, arms, inv, distance, torch.bfloat16)
-        compare("cbca_round", f"{side} f32, bf16 operands", got,
-                cbca_round(vol32, arms, inv, distance, torch.bfloat16), 0.0)
+        # K2 and K8 on f32 storage equal K7; then with bf16 operands, V4's
+        # launch of K8 (tolerance 0.0)
+        other = torch.empty_like(vol32)
+        rounds = (("cbca_round", cbca_round_cuda),
+                  ("cbca_rolling_round", cbca_rolling_round_cuda))
+        for name, fn in rounds:
+            fn(vol32, other, arms, inv, distance)
+            if not torch.equal(other, got):
+                raise AssertionError(f"{name} f32 differs from "
+                                     "cbca_stencil_round")
+        want = cbca_round(vol32, arms, inv, distance, torch.bfloat16)
+        for name, fn in rounds:
+            fn(vol32, got, arms, inv, distance, torch.bfloat16)
+            compare(name, f"{side} f32, bf16 operands", got, want, 0.0)
+        del other, want
     # K6 on the f32 descriptors, raw scores on all 256 lanes (tolerance 0.0
     # against its plain version; -K6 == K5 with ndisp = d_pad)
     scores = band_pair_scores(fl32, fr32, d_pad)
@@ -1277,6 +1299,9 @@ def main_shape_kernels(device, errors: Errors) -> dict:
                                       torch.bfloat16)),
         ("cbca_rolling_round", "ms_f32", lambda: cbca_rolling_round_cuda(
             vol32, out32, arms, inv, distance)),
+        ("cbca_rolling_round", "ms_f32_bf16_operands",
+         lambda: cbca_rolling_round_cuda(vol32, out32, arms, inv, distance,
+                                         torch.bfloat16)),
     )
     for name, key, fn in extras:
         times[name][key] = time_events(fn, 10)
@@ -1334,8 +1359,10 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         f"radius {k2['ms_full_arms']:.4f} ms (this scene's arms sum to "
         f"{sum(a.float().mean().item() for a in arms):.3f} pixels per "
         f"pixel); K8 bf16 {times['cbca_rolling_round']['ms']:.4f} (f32 "
-        f"{times['cbca_rolling_round']['ms_f32']:.4f}, every arm at the "
-        f"radius {times['cbca_rolling_round']['ms_full_arms']:.4f}); K9 per "
+        f"{times['cbca_rolling_round']['ms_f32']:.4f}, f32 with bf16 "
+        f"operands {times['cbca_rolling_round']['ms_f32_bf16_operands']:.4f}"
+        f", every arm at the radius "
+        f"{times['cbca_rolling_round']['ms_full_arms']:.4f}); K9 per "
         f"pass bf16 {times['cbca_two_rounds']['ms']:.4f}, f32 "
         f"{times['cbca_two_rounds']['ms_f32']:.4f}, f32 with bf16 operands "
         f"{times['cbca_two_rounds']['ms_f32_bf16_operands']:.4f}, every arm "
@@ -1396,13 +1423,17 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         times[name].update(bound_ms=ms, bound_by=by)
         log(f"  {name:18s} bound {ms:.4f} ms by {by}: the kernel takes "
             f"{times[name]['ms'] / ms:.1f} x that")
-    # K1's f32 route (path E): f32 descriptors in, an f32 band out, its
-    # multiply-adds at the f32 rate
-    ms, by = bound(2 * height * width * 64 * 4 + elements * 4, band_flop,
-                   "f32")
-    times["band_side"].update(bound_ms_f32=ms, bound_by_f32=by)
-    log(f"  {'band_side f32':18s} bound {ms:.4f} ms by {by}: the kernel "
-        f"takes {times['band_side']['ms_f32'] / ms:.1f} x that")
+    # the f32 routes: K1's (path E: f32 descriptors in, an f32 band out,
+    # its multiply-adds at the f32 rate) and K8's (path V4: the f32 volume
+    # read and written once, the sums as in bf16)
+    for name, moved, work in (
+            ("band_side", 2 * height * width * 64 * 4 + elements * 4,
+             band_flop),
+            ("cbca_rolling_round", 2 * elements * 4 + planes, arm_adds)):
+        ms, by = bound(moved, work, "f32")
+        times[name].update(bound_ms_f32=ms, bound_by_f32=by)
+        log(f"  {name + ' f32':18s} bound {ms:.4f} ms by {by}: the kernel "
+            f"takes {times[name]['ms_f32'] / ms:.1f} x that")
     return times
 
 

@@ -1,4 +1,5 @@
-// K8: one cross-based cost-aggregation (CBCA) round, rows rolled.
+// K8: one cross-based cost-aggregation (CBCA) round, rows rolled down a
+// column strip.
 //
 // Replaces mccnn_tpu/ops/cbca_rolling.py::_rolling_kernel
 // (cbca_fused_rolling; cbca_impl "rolling" and, with the bf16-operand flag
@@ -8,178 +9,65 @@
 //   out[h, w, d]   = inv_region(h, w) *
 //                    sum over h + o, o in [-up(h,w), down(h,w)] of horiz
 //
-// What the TPU kernel is for: every volume row is read once per column strip
-// and its horizontal sums are formed once, instead of once per haloed row
-// tile. What stays behind: the 0/1-mask matmuls, the ring-frame vertical
-// masks, the pair-block schedule and the DMA semaphores.
+// What the TPU kernel is for: its grid runs over column tiles only and rolls
+// down the column, so every volume row is read once per strip and its
+// horizontal sums are formed once, not once per haloed row tile. What stays
+// behind: the 0/1-mask matmuls, the ring-frame vertical masks, the
+// pair-block schedule and the DMA semaphores.
 //
-// Design. One block owns a (32-column strip, lane chunk, 256-row band) and
-// walks down the band's rows. Thread = (column, lane), the lane chunk one
-// 32-byte sector of a pixel's D-row (8 f32 or 16 bf16 lanes). Per row the
-// block stages the haloed row segment (32 + 2 r columns) in shared memory,
-// each thread forms its pixel's horizontal arm sum and keeps it in a ring of
-// the last 2 r + 1 rows; the vertical arm sum of the row r behind comes out
-// of the ring, times 1 / region, stored. A thread reads only the ring
-// entries it wrote itself, so the ring needs no barrier; the row segment is
-// double-buffered, one barrier per row. The next row and the next rows' arm
-// lengths (which bound the loops) are requested before the current row's
-// sums. Rows and columns outside the image are predicated to 0 and never
-// summed (no multiply by masks, no uninitialised ring slot: a band's first
-// output row is produced only when all 2 r + 1 slots have been written).
-// Sums run in the plain round's order (cbca_arms.cuh) with __fmul_rn, so the
-// round equals the plain round, K2 and K7 bit for bit, in f32 and bf16
-// storage. Out of place (the wrapper alternates two buffers).
+// Design. The first port rolled one row at a time and fetched every operand
+// of every sum from shared memory, which held it at the shared-memory bound
+// that cbca_walk.cuh computes (3.11 ms per bf16 round at 1000 x 1504 x
+// 256). K8 is now its own instantiation of that walk, which rolls down a
+// band of a 32-column strip kBatch rows a step with register windows; the
+// walk's note says what bounds it. What K8 chooses for itself:
 //
-// Bound: bytes, one read and one write of the volume per round (4 B per
-// element in bf16, 8 in f32). The strip halo re-reads (32 + 2 r) / 32 = 1.8 x
-// and the band halo (256 + 2 r) / 256 = 1.1 x of the volume, through L2. The
-// lane chunk is the fastest-varying block index, so the blocks in flight
-// cover whole pixel rows (K7's lesson, cbca_stencil.cu).
-#include "cbca_arms.cuh"
+//   * bf16 storage: K2's shape, 256 threads and 16-row steps, V two steps
+//     behind H over a 48-row ring; 16 lanes a block. Shared memory, R = 13
+//     / 16: 182,912 / 189,056 of 232,448 bytes.
+//   * f32 storage, with or without bf16 operands: K7's lever at R = 13, 512
+//     threads and 32-row steps, V one step behind H over a 64-row ring
+//     (230,656 bytes); at R = 16 the lever's stages do not fit and K2's
+//     shape runs (138,368 bytes); 8 lanes a block.
+//   * bands of 512 rows, where K2, K7, K4 and K9 take the walk's 256: half
+//     the band halo's re-read rows ((512 + 2R) / 512 = 1.05 x) and half the
+//     walk start-ups (kLag steps of H before V's first row), against half
+//     the blocks (1,504 in bf16 at the main shape, 11.4 waves of one block
+//     per SM). Timed in one call at 1000 x 1504 x 256 (NVIDIA H100 80GB
+//     HBM3, 700 W; mccnn_tpu_torch/tools/time_walk_variants.py), 256 / 512
+//     / whole-height bands: bf16 1.633 / 1.602 / 1.616 ms, f32 2.009 /
+//     1.905 / 1.921, f32 with bf16 operands 2.176 / 2.060 / 2.079; with
+//     every arm at the radius 2.608 / 2.612 / 2.563. K2's shape in f32
+//     takes 2.322 / 2.205 / 2.225 (with bf16 operands 2.564 / 2.441 /
+//     2.470), so the lever stays.
+//   * D a multiple of the block's lane chunk (16 lanes in bf16, 8 in f32),
+//     so narrow volumes run the kernel too (K2's entry takes whole 128-lane
+//     chunks only).
+//
+// Sums run in the plain round's order with one __fmul_rn, so the round
+// equals the plain round, K2 and K7 bit for bit in every mode. Out of place
+// (the wrapper alternates two buffers).
+#include "cbca_walk.cuh"
 
 namespace {
 
-constexpr int kTileW = 32;    // columns per strip
-constexpr int kBandH = 256;   // rows per band
+constexpr int kThreads = 256;       // bf16, and f32 at R = 16: K2's shape
+constexpr int kBatch = 16;
+constexpr int kThreadsF32 = 512;    // f32 at R = 13: K7's lever
+constexpr int kBatchF32 = 32;
+constexpr int kBandRows = 512;      // output rows per block
 
-template <typename T, int kLanes>
-__global__ void __launch_bounds__(kTileW* kLanes)
-cbca_rolling_kernel(const T* __restrict__ vol, T* __restrict__ out,
-                    const int* __restrict__ arm_left,
-                    const int* __restrict__ arm_right,
-                    const int* __restrict__ arm_up,
-                    const int* __restrict__ arm_down,
-                    const float* __restrict__ inv_region, int height,
-                    int width, int d_pad, int radius, int round_operand) {
-  extern __shared__ __align__(16) float s_mem[];
-  constexpr int kQuads = kLanes / 4;
-  const int slots = 2 * radius + 1;
-  const int raw_cols = kTileW + 2 * radius;
-  float* s_raw = s_mem;                              // [2][raw_cols][lanes]
-  float* s_ring = s_mem + 2 * raw_cols * kLanes;     // [slots][32][lanes]
+template <typename T>
+constexpr int kLanesOf = kPixelBytes / sizeof(T);
 
-  const int d0 = blockIdx.x * kLanes;
-  const int w0 = blockIdx.y * kTileW;
-  const int hb0 = blockIdx.z * kBandH;
-  const int hb1 = min(hb0 + kBandH, height);
-  const int tid = threadIdx.x;
-  const int lane = tid % kLanes;
-  const int col = tid / kLanes;
-  const int gw = w0 + col;
-  const bool rounded = round_operand != 0;
-
-  // the thread's part in staging a row: quad lq of window column lx
-  const int lx = tid / kQuads;
-  const int lq = tid % kQuads;
-  const int lgx = w0 - radius + lx;
-  const bool loader = lx < raw_cols;
-  const bool lcol_ok = loader && lgx >= 0 && lgx < width;
-
-  auto fetch = [&](int y) -> float4 {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (lcol_ok && y >= 0 && y < height) {
-      v = mccnn::load_operand_quad(
-          vol + (static_cast<size_t>(y) * width + lgx) * d_pad + d0 + 4 * lq,
-          rounded);
-    }
-    return v;
-  };
-  auto stash = [&](int buf, float4 v) {
-    if (loader) {
-      *reinterpret_cast<float4*>(s_raw + (buf * raw_cols + lx) * kLanes +
-                                 4 * lq) = v;
-    }
-  };
-  // arm lengths clamped to the radius and the image; -1: no such pixel
-  auto horizontal_arms = [&](int y, int& left, int& right) {
-    left = right = -1;
-    if (gw < width && y >= 0 && y < height) {
-      mccnn::load_arms(arm_left, arm_right,
-                       static_cast<size_t>(y) * width + gw, radius, gw,
-                       width - 1 - gw, left, right);
-    }
-  };
-  auto vertical_arms = [&](int o, int& up, int& down, float& inv) {
-    up = down = -1;
-    inv = 0.f;
-    if (gw < width && o >= hb0 && o < hb1) {
-      const size_t pix = static_cast<size_t>(o) * width + gw;
-      mccnn::load_arms(arm_up, arm_down, pix, radius, o, height - 1 - o, up,
-                       down);
-      inv = inv_region[pix];
-    }
-  };
-
-  const int y0 = hb0 - radius;
-  const int y1 = hb1 - 1 + radius;
-  int left, right, up, down;
-  float inv;
-  horizontal_arms(y0, left, right);
-  vertical_arms(y0 - radius, up, down, inv);
-  stash(0, fetch(y0));
-  int buf = 0;
-  int slot = 0;
-  float* ring = s_ring + col * kLanes + lane;
-  constexpr int kRingStride = kTileW * kLanes;
-
-  for (int y = y0; y <= y1; ++y) {
-    __syncthreads();
-    // request the next row and the next rows' arms before this row's sums
-    const float4 raw_next = fetch(y < y1 ? y + 1 : -1);
-    int left_n, right_n, up_n, down_n;
-    float inv_n;
-    horizontal_arms(y + 1, left_n, right_n);
-    vertical_arms(y + 1 - radius, up_n, down_n, inv_n);
-
-    float horiz = 0.f;
-    if (left >= 0) {
-      horiz = mccnn::arm_sum(
-          s_raw + (buf * raw_cols + col + radius) * kLanes + lane, kLanes,
-          left, right);
-    }
-    ring[slot * kRingStride] = horiz;
-
-    if (up >= 0) {
-      const int o = y - radius;
-      const int centre = slot >= radius ? slot - radius
-                                        : slot - radius + slots;
-      const float acc =
-          mccnn::ring_sum(ring, kRingStride, slots, centre, up, down);
-      out[(static_cast<size_t>(o) * width + gw) * d_pad + d0 + lane] =
-          mccnn::from_f32<T>(__fmul_rn(acc, inv));
-    }
-
-    stash(buf ^ 1, raw_next);
-    buf ^= 1;
-    slot = slot + 1 == slots ? 0 : slot + 1;
-    left = left_n;
-    right = right_n;
-    up = up_n;
-    down = down_n;
-    inv = inv_n;
-  }
-}
-
-template <typename T, int kLanes>
+template <typename T, int R, int kBlock, int kStep>
 cudaError_t launch(const void* vol_in, void* vol_out, const int* arm_l,
                    const int* arm_r, const int* arm_u, const int* arm_d,
                    const float* inv, int height, int width, int d_pad,
                    int radius, int round_operand, cudaStream_t s) {
-  if (d_pad % kLanes) return cudaErrorInvalidValue;
-  const size_t shared =
-      (2 * static_cast<size_t>(kTileW + 2 * radius) * kLanes +
-       static_cast<size_t>(2 * radius + 1) * kTileW * kLanes) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      cbca_rolling_kernel<T, kLanes>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(d_pad / kLanes, (width + kTileW - 1) / kTileW,
-                  (height + kBandH - 1) / kBandH);
-  cbca_rolling_kernel<T, kLanes><<<grid, kTileW * kLanes, shared, s>>>(
-      static_cast<const T*>(vol_in), static_cast<T*>(vol_out), arm_l, arm_r,
-      arm_u, arm_d, inv, height, width, d_pad, radius, round_operand);
-  return cudaGetLastError();
+  return launch_walk<T, R, kBlock, kStep, kLanesOf<T>, kBandRows>(
+      vol_in, vol_out, arm_l, arm_r, arm_u, arm_d, inv, height, width, d_pad,
+      radius, round_operand, s);
 }
 
 }  // namespace
@@ -189,8 +77,12 @@ extern "C" int mccnn_cbca_rolling_round(
     const void* arm_right, const void* arm_up, const void* arm_down,
     const void* inv_region, int height, int width, int d_pad, int radius,
     int bf16, int round_operand, void* stream) {
-  if (radius < 0 || radius > mccnn::kArmHalo || vol_in == vol_out ||
-      (width + kTileW - 1) / kTileW > 65535) {
+  const int lanes = bf16 ? kLanesOf<__nv_bfloat16> : kLanesOf<float>;
+  if (radius < 0 || radius > mccnn::kArmHalo || d_pad % lanes ||
+      vol_in == vol_out ||
+      reinterpret_cast<size_t>(vol_in) % kPieceBytes ||
+      (width + kTileW - 1) / kTileW > 65535 ||
+      (height + kBandRows - 1) / kBandRows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -199,10 +91,24 @@ extern "C" int mccnn_cbca_rolling_round(
   const int* au = static_cast<const int*>(arm_up);
   const int* ad = static_cast<const int*>(arm_down);
   const float* inv = static_cast<const float*>(inv_region);
-  return static_cast<int>(
-      bf16 ? launch<__nv_bfloat16, 16>(vol_in, vol_out, al, ar, au, ad, inv,
-                                       height, width, d_pad, radius,
-                                       round_operand, s)
-           : launch<float, 8>(vol_in, vol_out, al, ar, au, ad, inv, height,
-                              width, d_pad, radius, round_operand, s));
+  constexpr int kBig = mccnn::kArmHalo;
+  cudaError_t err;
+  if (bf16) {
+    err = radius <= 13
+        ? launch<__nv_bfloat16, 13, kThreads, kBatch>(
+              vol_in, vol_out, al, ar, au, ad, inv, height, width, d_pad,
+              radius, round_operand, s)
+        : launch<__nv_bfloat16, kBig, kThreads, kBatch>(
+              vol_in, vol_out, al, ar, au, ad, inv, height, width, d_pad,
+              radius, round_operand, s);
+  } else {
+    err = radius <= 13
+        ? launch<float, 13, kThreadsF32, kBatchF32>(
+              vol_in, vol_out, al, ar, au, ad, inv, height, width, d_pad,
+              radius, round_operand, s)
+        : launch<float, kBig, kThreads, kBatch>(
+              vol_in, vol_out, al, ar, au, ad, inv, height, width, d_pad,
+              radius, round_operand, s);
+  }
+  return static_cast<int>(err);
 }

@@ -1,8 +1,9 @@
 // The one-pass walk of a cross-based cost-aggregation (CBCA) round, shared
 // by K2 (cbca_round.cu: f32 and bf16 storage, the bf16-operand flag), K7
-// (cbca_stencil.cu: exact f32) and K4 (cbca_round_int8.cu: int8 storage,
-// 16 lanes a block); K9 (cbca_two_round.cu) chains two of its walks from
-// the pieces below the kernel (request_row, h_walk, v_walk):
+// (cbca_stencil.cu: exact f32), K4 (cbca_round_int8.cu: int8 storage, 16
+// lanes a block) and K8 (cbca_rolling.cu: the row-rolling round, D in
+// multiples of one lane chunk); K9 (cbca_two_round.cu) chains two of its
+// walks from the pieces below the kernel (request_row, h_walk, v_walk):
 //
 //   horiz[h, w, d] = sum over w + o, o in [-left(h,w), right(h,w)] of vol
 //   out[h, w, d]   = inv_region(h, w) *
@@ -18,8 +19,9 @@
 // its neighbours need too; a kernel that fetches each of them from shared
 // memory (54 four-byte loads per element and round at r = 13) is bound by
 // the shared-memory pipe at about 2.9 ms per round at 1000 x 1504 x 256,
-// which is where the two-pass K2 of the first port, the tiled K7 and the
-// row-rolling K8 sit. So the walk goes after shared-memory traffic first:
+// which is where the first ports of K2 (two passes), K7 (tiles) and K8 (one
+// row at a time) sat; all three now run this walk. So the walk goes after
+// shared-memory traffic first:
 //
 //   * Register windows. A thread owns two neighbouring lanes and walks along
 //     a row (horizontal sums) or down a column (vertical sums). It keeps the
@@ -42,10 +44,11 @@
 //     is the worst case.
 //
 // Layout of the work. A block of kThreads owns a (32-column strip, one
-// 32-byte lane chunk: 16 bf16 or 8 f32 lanes, 256-row band) and walks down
-// the band in steps of kBatch rows, as K8 walks single rows, so horizontal
-// sums are formed once per strip (1.1 x with the band halo), not once per
-// haloed tile. Per step j:
+// 32-byte lane chunk: 16 bf16 or 8 f32 lanes, band of kBand rows: 256
+// unless an instantiation says otherwise) and walks down the band in steps
+// of kBatch rows, as the TPU's row-rolling kernel walks single rows, so
+// horizontal sums are formed once per strip (1.1 x with a 256-row band's
+// halo), not once per haloed tile. Per step j:
 //
 //   1. the next step's kBatch haloed raw rows ((32 + 2R) columns x 32 bytes)
 //      and its arm / 1-over-region planes are requested with cp.async
@@ -65,9 +68,9 @@
 //      (__fmul_rn) and stores 32-byte sectors.
 //
 // Sums are f32 in the plain round's order (ops/cbca.py: centre, +1, -1, +2,
-// -2, ...), so a round equals the plain round, K8 and two-rounds-of-K9 bit
-// for bit in every mode, and K2 and K7 equal each other. Out of place (the
-// wrappers alternate two buffers).
+// -2, ...), so a round of K2, K7 or K8 equals the plain round, and one
+// another, bit for bit in every mode, and so do two rounds and a pass of K9.
+// Out of place (the wrappers alternate two buffers).
 //
 // Budget per block, one block per SM: the ring holds (kLag + 1) x kBatch
 // rows of 33 pixels of f32 sums (33 x 32 B a row in f32, 33 x 64 B in
@@ -87,7 +90,7 @@
 namespace {
 
 constexpr int kTileW = 32;       // columns per strip
-constexpr int kBandH = 256;      // output rows per block
+constexpr int kBandH = 256;      // output rows per block, by default
 constexpr int kLpt = 2;          // lanes per thread
 constexpr int kPixelBytes = 32;  // one sector of a pixel's D-row per block
 constexpr int kPieceBytes = 16;  // per cp.async of volume data
@@ -298,7 +301,8 @@ __device__ __forceinline__ void v_walk(const float* column, int slot,
       emit);
 }
 
-template <typename T, int R, int kThreads, int kBatch, int kLanes>
+template <typename T, int R, int kThreads, int kBatch, int kLanes,
+          int kBand>
 __global__ void __launch_bounds__(kThreads, 1)
 cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
                   const int* __restrict__ arm_left,
@@ -316,8 +320,8 @@ cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
 
   const int d0 = blockIdx.x * S::kLanes;
   const int w0 = blockIdx.y * kTileW;
-  const int hb0 = blockIdx.z * kBandH;
-  const int hb1 = min(hb0 + kBandH, height);
+  const int hb0 = blockIdx.z * kBand;
+  const int hb1 = min(hb0 + kBand, height);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -419,7 +423,7 @@ cbca_walk_kernel(const T* __restrict__ vol, T* __restrict__ out,
 }
 
 template <typename T, int R, int kThreads, int kBatch,
-          int kLanes = kPixelBytes / sizeof(T)>
+          int kLanes = kPixelBytes / sizeof(T), int kBand = kBandH>
 cudaError_t launch_walk(const void* vol_in, void* vol_out, const int* arm_l,
                         const int* arm_r, const int* arm_u, const int* arm_d,
                         const float* inv, int height, int width, int d_pad,
@@ -427,12 +431,12 @@ cudaError_t launch_walk(const void* vol_in, void* vol_out, const int* arm_l,
   using S = Shape<T, R, kThreads, kBatch, kLanes>;
   static bool shared_allowed[mccnn::kMaxDevices];
   const cudaError_t err = mccnn::allow_shared_once(
-      cbca_walk_kernel<T, R, kThreads, kBatch, kLanes>, S::kSharedBytes,
-      shared_allowed);
+      cbca_walk_kernel<T, R, kThreads, kBatch, kLanes, kBand>,
+      S::kSharedBytes, shared_allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(d_pad / S::kLanes, (width + kTileW - 1) / kTileW,
-                  (height + kBandH - 1) / kBandH);
-  cbca_walk_kernel<T, R, kThreads, kBatch, kLanes>
+                  (height + kBand - 1) / kBand);
+  cbca_walk_kernel<T, R, kThreads, kBatch, kLanes, kBand>
       <<<grid, kThreads, S::kSharedBytes, s>>>(
       static_cast<const T*>(vol_in), static_cast<T*>(vol_out), arm_l, arm_r,
       arm_u, arm_d, inv, height, width, d_pad, radius, round_operand);

@@ -89,7 +89,7 @@ class LaunchCounts:
 LAUNCHES = LaunchCounts()
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     for candidate in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                      "bin", "nvcc"),
@@ -128,20 +128,20 @@ def build() -> tuple[Path, float]:
         return target, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    nvcc = _nvcc()
+    compiler = nvcc()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
         objects = [os.path.join(objdir, src.stem + ".o") for src in cu]
-        commands = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        commands = [[compiler, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                     for src, obj in zip(cu, objects)]
         compilers = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
                      for cmd in commands]
         outputs = [proc.communicate()[0] for proc in compilers]
         failed = [proc.returncode for proc in compilers if proc.returncode]
-        commands.append([nvcc, *_ARCH, "-shared", "-o", tmp, *objects])
+        commands.append([compiler, *_ARCH, "-shared", "-o", tmp, *objects])
         if not failed:
             link = subprocess.run(commands[-1], capture_output=True, text=True)
             outputs.append(link.stdout + link.stderr)

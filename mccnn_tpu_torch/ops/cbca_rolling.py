@@ -7,12 +7,15 @@ volumes, the ``cbca_impl="rolling"`` backend, and with
 region-size normalizer once per call, then one launch of
 ``csrc/cbca_rolling.cu`` per round on a CUDA tensor, or the plain round
 (``ops/cbca.py``, with the same rounding points) on a CPU tensor. The kernel
-walks down the rows of a column strip with the horizontal sums in a
-shared-memory ring, so every volume row is read once per strip and no
-scratch volume exists; it sums in the plain round's order and equals the
-plain round, and K2 (``ops/cbca_fused.py``), bit for bit. Every shape runs
-the kernel: the JAX wrapper's fallback for narrow images is a TPU tiling
-limit and has no counterpart here.
+is its own instantiation of the walk that K2 runs (``csrc/cbca_walk.cuh``):
+it rolls down a band of a column strip several rows a step, with the
+horizontal sums in a shared-memory ring and register windows, so every
+volume row is read once per strip and no scratch volume exists. It sums in
+the plain round's order and equals the plain round, and K2
+(``ops/cbca_fused.py``), bit for bit. D need only be a multiple of one lane
+chunk (16 lanes in bf16, 8 in f32; K2 takes whole 128-lane chunks). Every
+shape runs the kernel: the JAX wrapper's fallback for narrow images is a
+TPU tiling limit and has no counterpart here.
 
 A round reads its neighbours, so on CUDA the rounds alternate between two
 buffers and the caller's volume is never written.

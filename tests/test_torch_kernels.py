@@ -545,6 +545,57 @@ def test_rolling_kernels_at_other_radii(distance):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("distance", [14, 17])
+def test_rolling_kernel_with_every_arm_at_the_radius(distance, mode):
+    """K8 on the arms of a constant image, where every arm reaches the
+    radius (13 and 16) inside the image and every group of offsets is
+    summed, over more rows than a band of 512 holds and a ragged strip:
+    bit-equal to the plain rounds and to K2, in the three modes."""
+    device = require_card()
+    dtype, compute = _MODES[mode]
+    height, width, d_pad, ndisp = 601, 45, 128, 70
+    arms = tcbca.compute_arms(torch.zeros((height, width), device=device),
+                              TAU, distance)
+    assert int(arms.left.max()) >= distance - 1
+    vol = _volume(np.random.default_rng(14), height, width, d_pad,
+                  ndisp).to(device, dtype)
+    build.LAUNCHES.reset()
+    got = cbca_fused_rolling(vol, arms, 3, distance, compute_dtype=compute)
+    assert _launched() == {"cbca_rolling_round": 3}
+    torch.testing.assert_close(
+        got, tcbca.cbca(vol, arms, 3, distance, compute), rtol=0, atol=0)
+    assert torch.equal(got, cbca_fused(vol, arms, 3, distance,
+                                       compute_dtype=compute))
+    assert got[..., ndisp:].float().min().item() >= 1e8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("distance", [2, 14, 17])
+def test_rolling_kernel_at_its_smallest_depths(distance, mode):
+    """K8 at one lane chunk, D = 16 in bf16 and D = 8 in f32 (K2 takes no
+    such depth), over more rows than one band of 256 or 512 holds: bit-equal
+    to the plain rounds; a depth of half a chunk is refused."""
+    device = require_card()
+    dtype, compute = _MODES[mode]
+    d_pad = 16 if dtype == torch.bfloat16 else 8
+    height, width = 600, 70
+    left, _ = _images(height, width)
+    arms = tcbca.compute_arms(left.to(device), TAU, distance)
+    vol = _volume(np.random.default_rng(15), height, width, d_pad,
+                  d_pad - 2).to(device, dtype)
+    build.LAUNCHES.reset()
+    got = cbca_fused_rolling(vol, arms, 2, distance, compute_dtype=compute)
+    assert _launched() == {"cbca_rolling_round": 2}
+    torch.testing.assert_close(
+        got, tcbca.cbca(vol, arms, 2, distance, compute), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="D %"):
+        cbca_fused_rolling(vol[..., :d_pad // 2].contiguous(), arms, 1,
+                           distance, compute_dtype=compute)
+
+
+@pytest.mark.cuda
 def test_fused16_flag_of_k2_matches_plain():
     device = require_card()
     left, _ = _images(70, 150)

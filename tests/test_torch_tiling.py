@@ -1,5 +1,5 @@
-"""Torch models of the index arithmetic of kernels K2, K7, K4, K9, K1 and
-K3, on the CPU.
+"""Torch models of the index arithmetic of kernels K2, K7, K8, K4, K9, K1
+and K3, on the CPU.
 
 The CUDA kernels run only on a card, and only there are they held against
 their plain versions (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
@@ -11,13 +11,15 @@ written in CUDA. The tile sizes and the radius split are read from the CUDA
 sources; the formulas (the lag of the vertical sums, the n-tiles of a warp)
 are the model's own copy. One case per distinct piece of arithmetic:
 
-  * K2 and K7 (``csrc/cbca_walk.cuh``, the walk both run;
-    ``csrc/cbca_round.cu`` and ``csrc/cbca_stencil.cu`` set its step):
-    strips of 32 columns and bands of rows, walked in steps of 16 (K2) or
-    32 rows (K7 up to R = 13); raw rows with a halo of R columns, zero
-    outside the image; horizontal sums into a ring of rows, vertical sums
-    out of the ring a fixed number of steps later; sums in the plain
-    round's order. Against ``ops.cbca.cbca_round``, tolerance 0.0.
+  * K2, K7 and K8 (``csrc/cbca_walk.cuh``, the walk all three run;
+    ``csrc/cbca_round.cu``, ``csrc/cbca_stencil.cu`` and
+    ``csrc/cbca_rolling.cu`` set its step and band): strips of 32 columns
+    and bands of 256 rows (512 in K8), walked in steps of 16 (K2, K8 in
+    bf16) or 32 rows (K7 and K8 in f32 up to R = 13); raw rows with a halo
+    of R columns, zero outside the image; horizontal sums into a ring of
+    rows, vertical sums out of the ring a fixed number of steps later; sums
+    in the plain round's order. Against ``ops.cbca.cbca_round``, tolerance
+    0.0.
   * K4 (``csrc/cbca_round_int8.cu``): the same walk on an int8 stage of 16
     lanes a block, the sums exact, the store rounded half to even. Against
     ``ops.cbca_fused.cbca_round_int8_plain``, tolerance 0.0.
@@ -77,6 +79,7 @@ WALK = _constants("cbca_walk.cuh")
 K2 = {**WALK, **_constants("cbca_round.cu")}
 K7 = {**WALK, **_constants("cbca_stencil.cu")}
 K4 = {**WALK, **_constants("cbca_round_int8.cu")}
+K8 = {**WALK, **_constants("cbca_rolling.cu")}
 K9 = {**WALK, **_constants("cbca_two_round.cu")}
 K1 = _constants("band.cu")
 K3 = _constants("sgm_sweep.cu")
@@ -87,9 +90,10 @@ K2_SMALL_R = int(re.search(r"radius <= (\d+)",
 K7_SMALL_R = int(re.search(r"radius <= (\d+)",
                            (_CSRC / "cbca_stencil.cu").read_text()).group(1))
 K2_LARGE_R = _constants("cbca_arms.cuh")["kArmHalo"]
-K4_SMALL_R, K9_SMALL_R = (
+K4_SMALL_R, K9_SMALL_R, K8_SMALL_R = (
     int(re.search(r"radius <= (\d+)", (_CSRC / name).read_text()).group(1))
-    for name in ("cbca_round_int8.cu", "cbca_two_round.cu"))
+    for name in ("cbca_round_int8.cu", "cbca_two_round.cu",
+                 "cbca_rolling.cu"))
 
 
 def test_the_models_read_the_kernels_constants():
@@ -99,7 +103,10 @@ def test_the_models_read_the_kernels_constants():
     assert (K7["kBatch"], K7["kThreads"], K7["kBatchAt16"]) == (32, 512, 16)
     assert (K4["kBatch"], K4["kThreads"], K4["kLanes"]) == (16, 256, 16)
     assert (K9["kLanes2"], K9["kBatch2"], K9["kSegCols"]) == (8, 8, 8)
-    assert (K4_SMALL_R, K9_SMALL_R) == (13, 13)
+    assert (K4_SMALL_R, K9_SMALL_R, K8_SMALL_R) == (13, 13, 13)
+    assert (K8["kThreads"], K8["kBatch"]) == (256, 16)
+    assert (K8["kThreadsF32"], K8["kBatchF32"]) == (512, 32)
+    assert K8["kBandRows"] == 2 * K8["kBandH"] == 512
     assert {"kChannels", "kChunkD", "kMmaTileW"} <= set(K1)
     assert K1["kChunkD"] == 128 and K1["kMmaTileW"] == 64
     assert {"kRingBytes", "kMaxLines", "kMinLines", "kChunk"} <= set(K3)
@@ -141,16 +148,20 @@ def k2_model(volume, arms, inv_region, distance, compute_dtype=None,
              band_h=None, kernel=K2):
     """One round as ``cbca_walk_kernel`` decomposes it (all lane chunks at
     once: the lane offset d0 + lane is the kernel's only use of them), with
-    the step of K2 or, ``kernel=K7``, of K7, or ``kernel=K4``, of K4 on an
-    int8 volume."""
+    the step of K2 or, ``kernel=K7``, of K7, ``kernel=K4``, of K4 on an
+    int8 volume, or ``kernel=K8``, K8's step and band in the volume's
+    storage type."""
     radius = distance - 1
     # the template parameter R, and the step height at that R
     reach = K2_SMALL_R if radius <= K2_SMALL_R else K2_LARGE_R
     batch = kernel["kBatch"]
     if kernel is K7 and reach > K7_SMALL_R:
         batch = kernel["kBatchAt16"]
+    if (kernel is K8 and volume.dtype == torch.float32
+            and reach <= K8_SMALL_R):
+        batch = kernel["kBatchF32"]
     tile_w = kernel["kTileW"]
-    band_h = band_h or kernel["kBandH"]
+    band_h = band_h or kernel.get("kBandRows", kernel["kBandH"])
     lag = -(-2 * reach // batch)
     ring_rows = (lag + 1) * batch
     height, width, depth = volume.shape
@@ -259,6 +270,18 @@ def test_k7_tiling_model_equals_plain_round(shape, distance, band_h):
                                     seed=24)
     want = tcbca.cbca_round(volume, arms, inv, distance)
     got = k2_model(volume, arms, inv, distance, band_h=band_h, kernel=K7)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# K8 at its own band height, in f32 at its 32-row steps (K7's lever) and
+# in bf16 at K2's shape, on more rows than one band holds
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_k8_tiling_model_at_its_band_height(mode, distance=14):
+    dtype, _ = _ROUND_MODES[mode]
+    height = K8["kBandRows"] + 44  # two bands, the second ragged
+    volume, arms, inv = _round_case(height, 40, 8, distance, dtype, seed=25)
+    want = tcbca.cbca_round(volume, arms, inv, distance)
+    got = k2_model(volume, arms, inv, distance, kernel=K8)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
