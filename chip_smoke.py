@@ -16,8 +16,11 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      70 x 128, 301 x 45 x 384; radius 0, 1, 13, 16; f32, bf16, bf16
      operands), K8, K9 and K4 there too, K7 also against K2, and K3 there in
      every direction, in place and out of place, on planes and on codes;
-     K3 on penalty codes; K6 also against K5; K10's output against its
-     input in both layouts);
+     K3 on penalty codes; K6 also against K5; K5 and K6 at shapes ragged
+     for their tile (``RAGGED_BANDS``): K5 in f32 against two K1 launches,
+     in bf16 against the f32 launch rounded, -K6 against K5 and K6's bf16
+     output against its f32 output rounded, all at 0.0, each against its
+     plain version; K10's output against its input in both layouts);
   4. drives the serving path -- ``MatchPipeline.dispatch``/``fetch`` at
      1000 x 1504, ndisp 200, bf16 volumes, paper-default MatchConfig, the
      fast MC-CNN at full width with seeded random weights -- on one
@@ -51,7 +54,8 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      arms, K9 per pass in bf16, f32, with bf16 operands (path V3) and at
      full arms, K4 per 128-lane launch and at full arms, K7 with and
      without its 512-thread lever and K10's floor at the tiling of K2 and
-     K7; K1 per side in bf16 and f32; K3 in place as the chained path
+     K7; K1 per side in bf16 and f32; K5 in f32 and bf16 and K6 with f32
+     and bf16 output; K3 in place as the chained path
      launches it, out of place, and in f32), computes each
      kernel's bound from this run's inputs, and profiles one pair.
 
@@ -145,6 +149,11 @@ STREAM_HALO = 32  # rows (columns) a tile's window adds: radius 16 each side
 # (H, W, D_pad); the rounds at each radius below
 RAGGED_SHAPES = ((37, 70, 128), (301, 45, 384))
 RAGGED_RADII = (0, 1, 13, 16)
+# K5 and K6 where their tile (64-column blocks, 8 x 8 register tiles at a
+# stride of 4) does not divide the band: (H, W, K5's ndisp, K6's depth);
+# every width is no multiple of the column tile and below d_pad, no ndisp
+# a multiple of a register tile, no depth of a register tile or a chunk
+RAGGED_BANDS = ((37, 70, 13, 300), (301, 45, 130, 77), (2, 1, 1, 3))
 # the card's published peaks (H100 SXM data sheet, dense): device memory
 # rate; f32 outside the tensor cores, bf16 and int8 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -375,6 +384,7 @@ def check_kernels(device, errors: Errors) -> None:
                 errors.record("sgm_sweep", f"{tag} dir {direction} on codes",
                               err, 0.0)
     check_ragged_rounds(device, errors)
+    check_ragged_bands(device, errors)
     # K10: a copy; the output equals the input in both layouts (two bands
     # of K2's tile shape in height)
     height = 2 * height
@@ -526,6 +536,75 @@ def check_ragged_rounds(device, errors: Errors) -> None:
                           f"ragged {height}x{width}x{d_pad} {str(dtype)[6:]} "
                           "(L, R; 4 dirs; in/out of place; planes, codes)",
                           worst, 0.0)
+
+
+def check_ragged_bands(device, errors: Errors) -> None:
+    """Phase 3 at the shapes of ``RAGGED_BANDS``. K5 in f32 against two K1
+    f32 launches, in bf16 against the f32 launch on the bf16 values,
+    rounded; -K6 against K5 with ndisp = d_pad on the chunks that cover
+    its depth, K6 with bf16 output against its f32 output, rounded: the
+    same fmaf chain, tolerance 0.0. Each also against its plain version:
+    f32 1e-5 (the plain correlation is cuBLAS's, whose order at these
+    shapes is its own), bf16 one ulp at |value| <= 1 (2^-8)."""
+    import torch
+    from mccnn_tpu_torch.ops.cost_volume import (
+        band_pair,
+        band_pair_plain,
+        band_pair_scores,
+        band_pair_scores_plain,
+        band_side,
+    )
+
+    rng = np.random.default_rng(SEED + 5)
+    for height, width, ndisp, depth in RAGGED_BANDS:
+        shape = f"ragged {height}x{width} ndisp {ndisp}"
+        fl = unit_features(rng, height, width, device)
+        fr = unit_features(rng, height, width, device)
+        d_pad = -(-ndisp // 128) * 128
+        exact32 = band_pair(fl, fr, ndisp, d_pad, torch.float32)
+        ones = (band_side(fl, fr, ndisp, d_pad, "left", torch.float32),
+                band_side(fr, fl, ndisp, d_pad, "right", torch.float32))
+        widened = band_pair(fl.to(torch.bfloat16).float(),
+                            fr.to(torch.bfloat16).float(), ndisp, d_pad,
+                            torch.float32)
+        for dtype, tol, exact in ((torch.float32, 1e-5, ones),
+                                  (torch.bfloat16, 2.0 ** -8, widened)):
+            a, o = fl.to(dtype), fr.to(dtype)
+            pair = exact32 if dtype == torch.float32 else band_pair(
+                a, o, ndisp, d_pad, dtype)
+            plain = band_pair_plain(a, o, ndisp, d_pad, dtype)
+            for side, got, want, one in zip(("left", "right"), pair, plain,
+                                            exact):
+                what = f"{shape} {str(dtype)[6:]} {side}"
+                errors.record("band_pair", what,
+                              (got.float() - want.float()).abs().max().item(),
+                              tol)
+                if not torch.equal(got, one.to(dtype)):
+                    raise AssertionError(
+                        f"band_pair {what}: differs from "
+                        + ("two band_side launches" if dtype == torch.float32
+                           else "the f32 launch on bf16 values, rounded"))
+        # K6 at a depth of no register tile or chunk
+        full = -(-depth // 128) * 128
+        costs = band_pair(fl, fr, full, full, torch.float32)
+        scores32 = band_pair_scores(fl, fr, depth)
+        for out_dtype, tol in ((torch.float32, 1e-5),
+                               (torch.bfloat16, 2.0 ** -8)):
+            scores = scores32 if out_dtype == torch.float32 else \
+                band_pair_scores(fl, fr, depth, out_dtype)
+            plain = band_pair_scores_plain(fl, fr, depth, out_dtype)
+            for side, got, want, cost, score32 in zip(
+                    ("left", "right"), scores, plain, costs, scores32):
+                what = (f"ragged {height}x{width} depth {depth} "
+                        f"{str(out_dtype)[6:]} out {side}")
+                errors.record("band_scores", what,
+                              (got.float() - want.float()).abs().max().item(),
+                              tol)
+                if not (torch.equal(-score32, cost[..., :depth])
+                        and torch.equal(got, score32.to(out_dtype))):
+                    raise AssertionError(
+                        f"band_scores {what}: -K6 differs from K5 or its "
+                        "bf16 output from its f32 output, rounded")
 
 
 def drive_main_path(device, launches):
@@ -1155,6 +1234,31 @@ def main_shape_kernels(device, errors: Errors) -> dict:
             raise AssertionError(f"band_scores {side}: -scores differ from "
                                  "band_pair")
     del scores, plain_scores, costs
+    # K5 in bf16 (path T with --volume_dtype bfloat16) and K6 with bf16
+    # output: equal to the f32 launches on the same values, rounded
+    # (tolerance 0.0); then against their plain versions, one bf16 ulp at
+    # |value| <= 1
+    pair16 = band_pair(fl, fr, ndisp, d_pad, dtype)
+    widened = band_pair(fl.float(), fr.float(), ndisp, d_pad, torch.float32)
+    for side, band16, exact, reference in zip(
+            ("left", "right"), pair16, widened,
+            band_pair_plain(fl, fr, ndisp, d_pad, dtype)):
+        compare("band_pair", f"{side} bf16 vs f32 launch, rounded", band16,
+                exact.to(dtype), 0.0)
+        compare("band_pair", f"{side} bf16 vs plain", band16, reference,
+                2.0 ** -8)
+    del pair16, widened
+    scores16 = band_pair_scores(fl32, fr32, d_pad, dtype)
+    for side, band16, exact, reference in zip(
+            ("left", "right"), scores16, band_pair_scores(fl32, fr32, d_pad),
+            band_pair_scores_plain(fl32, fr32, d_pad, dtype)):
+        errors.record("band_scores", f"{side} bf16 out vs f32 out, rounded",
+                      (band16.float() - exact.to(dtype).float()).abs().max()
+                      .item(), 0.0)
+        errors.record("band_scores", f"{side} bf16 out vs plain",
+                      (band16.float() - reference.float()).abs().max()
+                      .item(), 2.0 ** -8)
+    del scores16, band16, exact, reference
     torch.cuda.synchronize()
 
     volume, arms, inv, out, q = volumes["left"]
@@ -1273,6 +1377,10 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     extras = (
         ("band_side", "ms_f32", lambda: band_side(
             fl32, fr32, ndisp, d_pad, "left", torch.float32)),
+        ("band_pair", "ms_bf16", lambda: band_pair(
+            fl, fr, ndisp, d_pad, dtype)),
+        ("band_scores", "ms_bf16_out", lambda: band_pair_scores(
+            fl32, fr32, d_pad, dtype)),
         ("cbca_round", "ms_f32", lambda: cbca_round_cuda(
             vol32, out32, arms, inv, distance)),
         ("cbca_round", "ms_f32_bf16_operands", lambda: cbca_round_cuda(
@@ -1375,22 +1483,28 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         f"{STREAM_TILES[walk_label]} {times['cbca_stream']['ms']:.4f} ms "
         f"(window traffic {times['cbca_stream']['window_bound_ms']:.4f}); K1 "
         f"per side bf16 {times['band_side']['ms']:.4f}, f32 "
-        f"{times['band_side']['ms_f32']:.4f} ms; K3 per sweep in place "
+        f"{times['band_side']['ms_f32']:.4f} ms; K5 f32 "
+        f"{times['band_pair']['ms']:.4f}, bf16 "
+        f"{times['band_pair']['ms_bf16']:.4f} ms; K6 f32 out "
+        f"{times['band_scores']['ms']:.4f}, bf16 out "
+        f"{times['band_scores']['ms_bf16_out']:.4f} ms; K3 per sweep in place "
         f"{k3['ms']:.4f} (horizontal {k3['ms_horizontal']:.4f}, vertical "
         f"{k3['ms_vertical']:.4f}), out of place {k3['ms_out_of_place']:.4f},"
         f" f32 {k3['ms_f32']:.4f} ms")
 
     # bounds from this run's inputs. Operations: a band output in range is
-    # 64 multiply-adds; a CBCA output adds one value per arm pixel (this
-    # image's arms) and multiplies once; an SGM output takes about 8 f32
-    # operations. The rate is that of the operands' type: K1's bf16
-    # descriptors multiply on the tensor cores at the bf16 rate, K5's f32
-    # ones at the f32 rate (TF32 would change the result); the f32 adds of
-    # K2, K7 and K3 at the f32 rate; K4's integer adds at the int8 rate,
-    # on the 128-lane chunk it is launched on.
+    # 64 multiply-adds, and K5 and K6 compute each once for both bands (the
+    # right band's (w - d, d) is the left band's (w, d)); a CBCA output adds
+    # one value per arm pixel (this image's arms) and multiplies once; an
+    # SGM output takes about 8 f32 operations. The rate is that of the
+    # operands' type: K1's bf16 descriptors multiply on the tensor cores at
+    # the bf16 rate, K5's f32 ones at the f32 rate (TF32 would change the
+    # result); the f32 adds of K2, K7 and K3 at the f32 rate; K4's integer
+    # adds at the int8 rate, on the 128-lane chunk it is launched on.
     elements = height * width * d_pad
     planes = height * width * (4 * 4 + 4)  # four arm maps and 1 / region
     band_flop = 2 * 64 * height * sum(width - d for d in range(ndisp))
+    scores_flop = 2 * 64 * height * sum(width - d for d in range(d_pad))
     adds_per_lane = float(sum(a.sum().item() for a in arms) + height * width)
     arm_adds = d_pad * adds_per_lane
     chunk = height * width * chunk_lanes
@@ -1398,7 +1512,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         "band_side": bound(2 * height * width * 64 * 2 + elements * 2,
                            band_flop, "bf16"),
         "band_pair": bound(2 * height * width * 64 * 4 + 2 * elements * 4,
-                           2 * band_flop, "f32"),
+                           band_flop, "f32"),
         "cbca_round": bound(2 * elements * 2 + planes, arm_adds, "f32"),
         "cbca_stencil_round": bound(2 * elements * 4 + planes, arm_adds,
                                     "f32"),
@@ -1414,8 +1528,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         "cbca_two_rounds": bound(2 * elements * 2 + planes, 2 * arm_adds,
                                  "f32"),
         "band_scores": bound(
-            2 * height * width * 64 * 4 + 2 * elements * 4,
-            2 * 2 * 64 * height * sum(width - d for d in range(d_pad)),
+            2 * height * width * 64 * 4 + 2 * elements * 4, scores_flop,
             "f32"),
         "cbca_stream": bound(2 * tiled.numel() * 2, 0, "f32"),
     }
@@ -1423,17 +1536,25 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         times[name].update(bound_ms=ms, bound_by=by)
         log(f"  {name:18s} bound {ms:.4f} ms by {by}: the kernel takes "
             f"{times[name]['ms'] / ms:.1f} x that")
-    # the f32 routes: K1's (path E: f32 descriptors in, an f32 band out,
-    # its multiply-adds at the f32 rate) and K8's (path V4: the f32 volume
-    # read and written once, the sums as in bf16)
-    for name, moved, work in (
-            ("band_side", 2 * height * width * 64 * 4 + elements * 4,
-             band_flop),
-            ("cbca_rolling_round", 2 * elements * 4 + planes, arm_adds)):
+    # the other routes: K1's f32 one (path E: f32 descriptors in, an f32
+    # band out, its multiply-adds at the f32 rate), K8's f32 one (path V4:
+    # the f32 volume read and written once, the sums as in bf16), K5 in
+    # bf16 (bf16 descriptors in, bf16 bands out; its multiply-adds are the
+    # f32 fmaf chain on the widened values, at the f32 rate) and K6 with
+    # bf16 output
+    for name, key, moved, work in (
+            ("band_side", "f32",
+             2 * height * width * 64 * 4 + elements * 4, band_flop),
+            ("cbca_rolling_round", "f32", 2 * elements * 4 + planes,
+             arm_adds),
+            ("band_pair", "bf16",
+             2 * height * width * 64 * 2 + 2 * elements * 2, band_flop),
+            ("band_scores", "bf16_out",
+             2 * height * width * 64 * 4 + 2 * elements * 2, scores_flop)):
         ms, by = bound(moved, work, "f32")
-        times[name].update(bound_ms_f32=ms, bound_by_f32=by)
-        log(f"  {name + ' f32':18s} bound {ms:.4f} ms by {by}: the kernel "
-            f"takes {times[name]['ms_f32'] / ms:.1f} x that")
+        times[name].update({f"bound_ms_{key}": ms, f"bound_by_{key}": by})
+        log(f"  {name + ' ' + key:18s} bound {ms:.4f} ms by {by}: the "
+            f"kernel takes {times[name]['ms_' + key] / ms:.1f} x that")
     return times
 
 

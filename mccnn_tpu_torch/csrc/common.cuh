@@ -51,6 +51,13 @@ __device__ __forceinline__ void copy_async_4(void* shared, const void* global,
                : "memory");
 }
 
+// Whether every pointer is 16-byte aligned, as 16-byte copies and stores
+// need.
+template <typename... Pointers>
+inline bool aligned_16(Pointers... pointers) {
+  return ((reinterpret_cast<size_t>(pointers) % 16 == 0) && ...);
+}
+
 // Shared memory one block may use on Hopper (227 KB of the SM's 256 KB).
 constexpr int kMaxSharedBytes = 232448;
 

@@ -309,6 +309,79 @@ def test_band_pair_kernel_equals_two_band_side_launches(shape, dtype):
                                    rtol=0)
 
 
+# shapes ragged for K5's and K6's tile (band_tile.cuh: 64-column blocks,
+# 8 x 8 register tiles at a stride of 4): a width that is no multiple of
+# the column tile, an ndisp that is no multiple of a register tile, a width
+# below d_pad, 1 x 1 and one-row images
+RAGGED_BANDS = [(3, 70, 13), (2, 100, 130), (1, 1, 1), (1, 300, 77),
+                (4, 65, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RAGGED_BANDS)
+def test_band_pair_kernel_at_ragged_tiles(shape, dtype):
+    """K5 at shapes ragged for its tile: in f32 equal to two K1 f32
+    launches, in bf16 equal to the f32 launch on the bf16 values, rounded
+    (tolerance 0.0: the same fmaf chain); within the plain version's
+    tolerance of it."""
+    device = require_card()
+    height, width, ndisp = shape
+    d_pad = -(-ndisp // 128) * 128
+    rng = np.random.default_rng(15)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width)).to(
+        device, dtype) for _ in "lr")
+    build.LAUNCHES.reset()
+    got = tcv.band_pair(fl, fr, ndisp, d_pad, dtype)
+    assert _launched() == {"band_pair": 1}
+    if dtype == torch.float32:
+        want = (tcv.band_side(fl, fr, ndisp, d_pad, "left", dtype),
+                tcv.band_side(fr, fl, ndisp, d_pad, "right", dtype))
+    else:
+        want = tuple(v.to(dtype) for v in tcv.band_pair(
+            fl.float(), fr.float(), ndisp, d_pad, torch.float32))
+    plain = tcv.band_pair_plain(fl, fr, ndisp, d_pad, dtype)
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    for ours, exact, reference in zip(got, want, plain):
+        torch.testing.assert_close(ours, exact, rtol=0, atol=0)
+        torch.testing.assert_close(ours.float(), reference.float(),
+                                   rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [*RAGGED_BANDS[:2], (2, 100, 300),
+                                   (1, 1, 1), (1, 300, 77), (4, 40, 3)])
+def test_band_scores_kernel_at_ragged_tiles(shape, out_dtype):
+    """K6 at depths that are no multiple of a register tile or of a chunk,
+    at a depth below one register tile, on 1 x 1 and one-row images:
+    negated, equal to K5 on the chunks that cover the depth (f32 out), or
+    to the f32 scores rounded (bf16 out), at tolerance 0.0; within the
+    plain version's tolerance."""
+    device = require_card()
+    height, width, depth = shape
+    rng = np.random.default_rng(16)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width)).to(device)
+              for _ in "lr")
+    build.LAUNCHES.reset()
+    got = tcv.band_pair_scores(fl, fr, depth, out_dtype)
+    assert _launched() == {"band_scores": 1}
+    if out_dtype == torch.float32:
+        d_pad = -(-depth // 128) * 128
+        want = tuple(-v[..., :depth] for v in tcv.band_pair(
+            fl, fr, d_pad, d_pad, torch.float32))
+    else:
+        want = tuple(v.to(out_dtype) for v in tcv.band_pair_scores(
+            fl, fr, depth))
+    plain = tcv.band_pair_scores_plain(fl, fr, depth, out_dtype)
+    atol = 1e-5 if out_dtype == torch.float32 else 2.0 ** -8
+    for ours, exact, reference in zip(got, want, plain):
+        assert ours.dtype == out_dtype and ours.shape == reference.shape
+        torch.testing.assert_close(ours, exact, rtol=0, atol=0)
+        torch.testing.assert_close(ours.float(), reference.float(),
+                                   rtol=0, atol=atol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(70, 150, 256, 200), (48, 64, 128, 16),
                                    (1, 1, 128, 1), (33, 5, 8, 8)])

@@ -1,5 +1,5 @@
-"""Torch models of the index arithmetic of kernels K2, K7, K8, K4, K9, K1
-and K3, on the CPU.
+"""Torch models of the index arithmetic of kernels K2, K7, K8, K4, K9, K1,
+K5, K6 and K3, on the CPU.
 
 The CUDA kernels run only on a card, and only there are they held against
 their plain versions (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
@@ -37,6 +37,17 @@ are the model's own copy. One case per distinct piece of arithmetic:
     one bf16 ulp, zeros and pad lanes exact; the same offsets on f32 inputs
     to 1e-5 (another summation order; the kernel's f32 route keeps its
     earlier tiling and is not modelled).
+  * K5 and K6 (``csrc/band_tile.cuh``, the block routine both run): per
+    (column tile, 128-disparity chunk) one correlation tile of fL's
+    anchor columns and fR's context window, zero outside the image,
+    stored as the left band's rows and the right band's diagonals, column
+    tiles up to ``width + d_max``; each lane's register tile of columns x
+    disparities at a stride of 4, read off its diagonals; the per-thread
+    skip of tiles with nothing to compute; the epilogues' masks at
+    ``width``, ``ndisp`` and ``depth``; the pad-chunk fill; every element
+    stored once; the shared-memory budget of the header's note. Against
+    ``band_pair_plain`` and ``band_pair_scores_plain``: zeros and pad
+    lanes exact, values to 1e-5.
   * K3 (``csrc/sgm_sweep.cu``): a ring of lines per fibre filled a fixed
     number of lines ahead, which slot holds which line in both sweep
     orders, that an in-place sweep reads each line before it writes it, and
@@ -82,6 +93,7 @@ K4 = {**WALK, **_constants("cbca_round_int8.cu")}
 K8 = {**WALK, **_constants("cbca_rolling.cu")}
 K9 = {**WALK, **_constants("cbca_two_round.cu")}
 K1 = _constants("band.cu")
+TILE = _constants("band_tile.cuh")
 K3 = _constants("sgm_sweep.cu")
 # the radius up to which K2 and K7 run their smaller instantiation, and the
 # larger
@@ -109,6 +121,10 @@ def test_the_models_read_the_kernels_constants():
     assert K8["kBandRows"] == 2 * K8["kBandH"] == 512
     assert {"kChannels", "kChunkD", "kMmaTileW"} <= set(K1)
     assert K1["kChunkD"] == 128 and K1["kMmaTileW"] == 64
+    assert {"kChannels", "kChunkD", "kLanes", "kSliceC", "kBw", "kBd",
+            "kTileW"} <= set(TILE)
+    assert (TILE["kChunkD"], TILE["kLanes"], TILE["kSliceC"]) == (128, 4, 16)
+    assert (TILE["kBw"], TILE["kBd"], TILE["kTileW"]) == (8, 8, 64)
     assert {"kRingBytes", "kMaxLines", "kMinLines", "kChunk"} <= set(K3)
 
 
@@ -516,6 +532,161 @@ def test_k1_tiling_model_equals_plain_band(shape, ndisp, d_pad, dtype, side):
     disps = torch.arange(ndisp)[None, :]
     valid = cols >= disps if side == "left" else cols + disps < width
     assert not bool(got[..., :ndisp][:, ~valid].any())
+
+
+def band_tile_shape(bw, bd, tile_w):
+    """``Tile<bw, bd, tile_w>`` and ``Layout``: threads, and the shared
+    bytes of a block for f32 and bf16 descriptors (the tile of either
+    output type overlaid), the f32 tile's and a raw bf16 slice's bytes."""
+    lanes, chunk, slice_c = TILE["kLanes"], TILE["kChunkD"], TILE["kSliceC"]
+    threads = 32 * (tile_w // (2 * lanes * bw)) * (chunk // (lanes * bd))
+    pixels = 2 * tile_w + chunk - 1  # anchor, then context
+    f32_slice = pixels * (slice_c + 4) * 4
+    raw_slice = pixels * slice_c * 2
+    tile = {size: tile_w * (chunk + 16 // size) * size for size in (2, 4)}
+    shared = {"f32": max(2 * f32_slice, tile[4]),
+              "bf16": max(f32_slice + 2 * raw_slice, tile[2])}
+    return threads, shared, tile[4], raw_slice
+
+
+def test_band_tile_fits_the_block_as_its_note_says():
+    note = (_CSRC / "band_tile.cuh").read_text()
+    threads, shared, tile32, raw = band_tile_shape(
+        TILE["kBw"], TILE["kBd"], TILE["kTileW"])
+    assert threads == 128 and f"{threads} threads" in note
+    for value in (shared["f32"], shared["bf16"], tile32, raw):
+        assert f"{value:,}" in note
+    # four blocks per SM: 228 KB, 1 KB of it reserved per block, and the
+    # register file at 128 registers a thread
+    assert 4 * (shared["f32"] + 1024) <= 228 * 1024
+    assert 4 * threads * 128 <= 65536
+
+
+def band_tile_model(fl, fr, depth, compute_end, epilogue, shape=None):
+    """Both bands as the block routine of ``band_tile.cuh`` makes them, at
+    ``shape`` = (Bw, Bd, block columns), the shipped one by default: per
+    (column tile, chunk) the correlation tile t[w][d] = <fL(w), fR(w - d)>,
+    stored as the left band's rows and the right band's diagonals.
+    ``epilogue(score, d, matched)`` gives the stored value; no sums at
+    d >= ``compute_end``; lanes d >= ``depth`` are not stored."""
+    bw, bd, tile_w = shape or (TILE["kBw"], TILE["kBd"], TILE["kTileW"])
+    lanes, chunk = TILE["kLanes"], TILE["kChunkD"]
+    height, width, _ = fl.shape
+    a, o = fl.float(), fr.float()
+    out = torch.full((2, height, width, depth), float("nan"))
+    stores = torch.zeros((2, width, depth), dtype=torch.int64)
+    # every thread of a block: warp -> (wc, wd), lane -> (h, p, q)
+    t = torch.arange(band_tile_shape(bw, bd, tile_w)[0])
+    lane, warp = t % 32, t // 32
+    p, q, h = lane % lanes, lane // lanes % lanes, lane // 16
+    warps_w = tile_w // (2 * lanes * bw)
+    col0 = warp % warps_w * 2 * lanes * bw + h * lanes * bw + p
+    dmin = warp // warps_w * lanes * bd + q
+    xb = col0 - dmin + chunk - 1 - lanes * (bd - 1)
+    i = torch.arange(bw)[None, :, None]
+    j = torch.arange(bd)[None, None, :]
+    col = (col0[:, None, None] + lanes * i).expand(-1, bw, bd)
+    dl = (dmin[:, None, None] + lanes * j).expand(-1, bw, bd)
+    x = xb[:, None, None] + lanes * (i - j + bd - 1)
+    # the diagonal: context column x holds fR column w0 - d0 - 127 + x
+    assert torch.equal(x, col - dl + chunk - 1)
+    assert int(x.min()) >= 0 and int(x.max()) < tile_w + chunk - 1
+    cells = torch.zeros((tile_w, chunk), dtype=torch.int64)
+    cells.index_put_((col, dl), torch.ones_like(col), accumulate=True)
+    assert bool((cells == 1).all())  # each tile element once per block
+    # the right pixels: diagonal r holds lanes dl at tile row r - 127 + dl
+    r = torch.arange(tile_w + chunk - 1)[:, None]
+    rl = torch.arange(chunk)[None, :]
+    on_tile = (r - (chunk - 1) + rl >= 0) & (r - (chunk - 1) + rl < tile_w)
+    chunks = -(-depth // chunk)
+    for d0 in range(0, chunks * chunk, chunk):
+        # column tiles up to width + d_max: every right pixel's lanes
+        for w0 in range(0, width + chunks * chunk - 1, tile_w):
+            if w0 >= width + d0 + chunk - 1:
+                continue  # no left or right pixel of this tile is stored
+            gw, gd = w0 + col, d0 + dl
+            score = torch.zeros((height, *col.shape))
+            if d0 < compute_end and w0 < width and w0 + tile_w - 1 >= d0:
+                anchor = torch.zeros((height, tile_w, 64))
+                ctx = torch.zeros((height, tile_w + chunk - 1, 64))
+                cols = w0 + torch.arange(tile_w)
+                anchor[:, cols < width] = a[:, cols[cols < width]]
+                cols = w0 - d0 - (chunk - 1) + torch.arange(
+                    tile_w + chunk - 1)
+                ok = (cols >= 0) & (cols < width)
+                ctx[:, ok] = o[:, cols[ok]]
+                score = (anchor[:, col] * ctx[:, x]).sum(-1)
+                # a thread skips its sums when its whole tile lies past the
+                # image, past the end, or out of range
+                lo_w, lo_d = gw[:, 0, 0], gd[:, 0, 0]
+                active = ((lo_w < width) & (lo_d < compute_end)
+                          & (lo_w + lanes * (bw - 1) >= lo_d))
+                score[:, ~active] = 0.0
+            tile = torch.empty((height, tile_w, chunk))
+            tile[:, col, dl] = epilogue(score, gd, (gw >= gd) & (gw < width))
+            stored = min(chunk, depth - d0)
+            rows = torch.arange(tile_w)
+            rows = rows[w0 + rows < width]
+            out[0][:, w0 + rows, d0:d0 + stored] = tile[:, rows, :stored]
+            stores[0][w0 + rows, d0:d0 + stored] += 1
+            wr = w0 - d0 - (chunk - 1) + r
+            keep = on_tile & (wr >= 0) & (wr < width) & (rl < stored)
+            rr, ll = (v.expand_as(keep)[keep] for v in (r, rl))
+            out[1][:, (wr.expand_as(keep))[keep], d0 + ll] = tile[
+                :, rr - (chunk - 1) + ll, ll]
+            stores[1].index_put_(((wr.expand_as(keep))[keep], d0 + ll),
+                                 torch.ones_like(ll), accumulate=True)
+    assert bool((stores == 1).all())  # every element stored once
+    return out[0], out[1]
+
+
+def _k5_epilogue(ndisp):
+    def value(score, d, matched):
+        return torch.where(d >= ndisp, BIG_COST,
+                           torch.where(matched, -score, 0.0))
+    return value
+
+
+def _k6_epilogue(score, d, matched):
+    return torch.where(matched, score, 0.0)
+
+
+# a ragged column tile with ndisp no multiple of a register tile, a second
+# chunk partly pad lanes, a width below d_pad with a chunk of pad lanes
+# only; the shipped tile and a narrower one
+@pytest.mark.parametrize("shape", [None, (4, 8, 32)])
+@pytest.mark.parametrize("size,ndisp,d_pad", [
+    ((2, 70), 5, 128),
+    ((2, 150), 130, 256),
+    ((1, 33), 20, 256),
+])
+def test_band_tile_model_equals_plain_k5(size, ndisp, d_pad, shape):
+    height, width = size
+    rng = np.random.default_rng(31)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width))
+              for _ in "lr")
+    got = band_tile_model(fl, fr, d_pad, ndisp, _k5_epilogue(ndisp), shape)
+    want = tcv.band_pair_plain(fl, fr, ndisp, d_pad, torch.float32)
+    for ours, plain in zip(got, want):
+        zero = plain[..., :ndisp] == 0
+        assert torch.equal(ours[..., :ndisp][zero], plain[..., :ndisp][zero])
+        assert torch.equal(ours[..., ndisp:], plain[..., ndisp:])
+        torch.testing.assert_close(ours, plain, rtol=0, atol=1e-5)
+
+
+# K6: a depth that is no multiple of a register tile or of a chunk, and one
+# below a register tile
+@pytest.mark.parametrize("size,depth", [((2, 150), 300), ((3, 40), 3)])
+def test_band_tile_model_equals_plain_k6(size, depth):
+    height, width = size
+    rng = np.random.default_rng(32)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width))
+              for _ in "lr")
+    got = band_tile_model(fl, fr, depth, depth, _k6_epilogue)
+    want = tcv.band_pair_scores_plain(fl, fr, depth)
+    for ours, plain in zip(got, want):
+        assert torch.equal(ours[plain == 0], plain[plain == 0])
+        torch.testing.assert_close(ours, plain, rtol=0, atol=1e-5)
 
 
 def k3_lines(dtype, d_pad):
