@@ -57,12 +57,26 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      K7; K1 per side in bf16 and f32; K5 in f32 and bf16 and K6 with f32
      and bf16 output; K3 in place as the chained path
      launches it, out of place, and in f32), computes each
-     kernel's bound from this run's inputs, and profiles one pair.
+     kernel's bound from this run's inputs, and profiles one pair;
+  8. drives the training path at full width (the fast net, 11 x 11 patches,
+     ``TrainConfig()``: batch 128, margin 0.2, lr 0.002, beta 0.9): two
+     synthetic 1000 x 1504 scenes written in the Middlebury layout under
+     ``build/train_smoke``; ``mccnn_tpu_torch.cli.train.main`` on the card
+     for 3 epochs with the native sampler and the prefetcher (checkpoints
+     and metrics events checked); 3 steps on the card against 3 on the CPU
+     from one set of weights and three sampler batches (losses, params and
+     momentum traces within ``TRAIN_LOSS_TOL`` / ``TRAIN_REL_TOL``); steps/s
+     on a fixed batch with no sync between steps (the loss must fall over
+     200 steps) and fed by the sampler through the prefetcher, with a
+     profile of 20 steps (``build/profile_train.txt``); then the last
+     checkpoint through ``MatchPipeline`` on one scene (K1 2, K2 36, K3 8
+     launches) and its features against an ``F.relu`` forward, bit for bit.
 
 Every failed phase raises, so the exit code is non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 The last lines are the serving pair's seconds and peak device memory, the
-card, the per-kernel JSON summary and ``{"ok": true, "device": {...}}``.
+training summary (both steps/s), the card, the per-kernel JSON summary and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -128,6 +142,8 @@ PER_PAIR = {
                                   "sgm_sweep": 8},
     "raw bands": {"band_scores": 1},
     "stream probe": {"cbca_stream": PROBE_ITERS + 2},
+    # the training phase's last checkpoint through the serving path
+    "trained serve": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
 }
 # the path whose launch count stands in the summary line for each kernel
 OWN_PATH = {
@@ -154,6 +170,17 @@ RAGGED_RADII = (0, 1, 13, 16)
 # every width is no multiple of the column tile and below d_pad, no ndisp
 # a multiple of a register tile, no depth of a register tile or a chunk
 RAGGED_BANDS = ((37, 70, 13, 300), (301, 45, 130, 77), (2, 1, 1, 3))
+# the training phase: two scenes at the main shape, the CLI's epochs, the
+# steps of each throughput run
+TRAIN_SCENES = ("slanted", "occlusion")
+TRAIN_EPOCHS = 3
+TRAIN_STEPS = 200
+# card against CPU after 3 steps: cuDNN sums the convolutions and their
+# gradients in another order than the CPU (TF32 off), a few thousand f32
+# terms a sum, relative errors of order 1e-6; each param and momentum leaf
+# is held to 1e-4 of its largest entry, each loss (about 0.2) to 1e-5
+TRAIN_REL_TOL = 1e-4
+TRAIN_LOSS_TOL = 1e-5
 # the card's published peaks (H100 SXM data sheet, dense): device memory
 # rate; f32 outside the tensor cores, bf16 and int8 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -711,30 +738,40 @@ def check_ranges(what, net, left, right, **options) -> None:
     torch.cuda.synchronize()
 
 
+def synchronizing_calls(fn) -> list:
+    """The messages of the synchronizing calls that ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message) for w in caught
+            if "synchroniz" in str(w.message).lower()]
+
+
 def check_dispatch_is_async(pipeline, scene) -> None:
     """``dispatch`` must enqueue without waiting on the device (the serve
     loop overlaps host work with it): no synchronizing call inside it."""
-    import warnings
-
     import torch
     from mccnn_tpu_torch.pipeline.match import standardize_image
 
     left = standardize_image(scene["left"])
     right = standardize_image(scene["right"])
     torch.cuda.synchronize()
+    handles = []
     t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            handle = pipeline.dispatch(left, right, MAIN_NDISP)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    syncs = synchronizing_calls(
+        lambda: handles.append(pipeline.dispatch(left, right, MAIN_NDISP)))
     t1 = time.perf_counter()
-    pipeline.fetch(handle)
+    pipeline.fetch(handles[0])
     t2 = time.perf_counter()
-    syncs = [str(w.message) for w in caught
-             if "synchroniz" in str(w.message).lower()]
     log(f"  dispatch returned after {1e3 * (t1 - t0):.1f} ms, fetch after "
         f"{1e3 * (t2 - t0):.1f} ms; synchronizing calls in dispatch: "
         f"{len(syncs)}")
@@ -1558,23 +1595,18 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     return times
 
 
-def profile_pair(pipeline) -> None:
-    """Device time by kernel over one main-path pair (torch.profiler)."""
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler``; returns (wall ms, kernel ms,
+    kernel events by self device time, the averages)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from mccnn_tpu_torch.pipeline.match import standardize_image
-    from mccnn_tpu_torch.utils.scenes import make_scene
 
-    scene = make_scene("slanted", np.random.default_rng(SEED + 2),
-                       *MAIN_SHAPE, 150)
-    left = standardize_image(scene["left"])
-    right = standardize_image(scene["right"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipeline.fetch(pipeline.dispatch(left, right, MAIN_NDISP))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
@@ -1586,16 +1618,288 @@ def profile_pair(pipeline) -> None:
     events = [e for e in averages if getattr(e, key) > 0
               and e.device_type == DeviceType.CUDA]
     device_ms = sum(getattr(e, key) for e in events) / 1e3
+    events.sort(key=lambda e: -getattr(e, key))
     log(f"  wall {wall_ms:.1f} ms, kernels {device_ms:.1f} ms "
         f"(device busy {100 * device_ms / wall_ms:.1f}%)")
-    events.sort(key=lambda e: -getattr(e, key))
     for e in events[:12]:
         log(f"    {getattr(e, key) / 1e3:9.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+    return wall_ms, device_ms, averages.table(sort_by=key, row_limit=60)
+
+
+def profile_pair(pipeline) -> None:
+    """Device time by kernel over one main-path pair (torch.profiler)."""
+    from mccnn_tpu_torch.pipeline.match import standardize_image
+    from mccnn_tpu_torch.utils.scenes import make_scene
+
+    scene = make_scene("slanted", np.random.default_rng(SEED + 2),
+                       *MAIN_SHAPE, 150)
+    left = standardize_image(scene["left"])
+    right = standardize_image(scene["right"])
+    _, _, table = profiled(
+        lambda: pipeline.fetch(pipeline.dispatch(left, right, MAIN_NDISP)))
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile_pair.txt"), "w") as f:
-        f.write(averages.table(sort_by=key, row_limit=60))
+        f.write(table)
+
+
+def write_training_scenes(root: str) -> None:
+    """Phase 8 (a): the synthetic training scenes at the main shape in the
+    Middlebury layout (im0.png, im1.png, disp0GT.pfm with inf where a left
+    pixel has no match, calib.txt) and their train.txt / val.txt."""
+    from mccnn_tpu_torch.io.pfm import write_pfm
+    from mccnn_tpu_torch.utils.scenes import make_scene
+
+    height, width = MAIN_SHAPE
+    rng = np.random.default_rng(SEED + 4)
+    lefts = []
+    for family in TRAIN_SCENES:
+        scene = make_scene(family, rng, height, width, 150)
+        directory = os.path.join(root, "data", family)
+        os.makedirs(directory)
+        write_png(scene["left"], os.path.join(directory, "im0.png"))
+        write_png(scene["right"], os.path.join(directory, "im1.png"))
+        gt = np.where(scene["occluded"], np.inf, scene["gt"]).astype(
+            np.float32)
+        write_pfm(gt, os.path.join(directory, "disp0GT.pfm"))
+        with open(os.path.join(directory, "calib.txt"), "w") as f:
+            f.write(f"width={width}\nheight={height}\nndisp={MAIN_NDISP}\n")
+        lefts.append(os.path.join(directory, "im0.png"))
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(lefts) + "\n")
+
+
+def drive_training(device, launches, smi: str):
+    """Phase 8: the training path at full width (the fast net, 5 x 64 maps,
+    11 x 11 patches, ``TrainConfig()``: batch 128, margin 0.2, lr 0.002,
+    beta 0.9). (a) two scenes at the main shape; (b) ``cli.train.main`` on
+    the card, 3 epochs, native sampler, prefetch on; (c) 3 steps on the card
+    against 3 on the CPU from one set of weights; (d) steps/s on a fixed
+    batch and fed by the sampler through the prefetcher; (e) the last
+    checkpoint served through ``MatchPipeline``. Returns (summary, the
+    serving run's launch counts)."""
+    import shutil
+
+    import torch
+    from mccnn_tpu_torch import native
+    from mccnn_tpu_torch.cli import train as cli
+    from mccnn_tpu_torch.data.dataset import StereoDataset, load_grayscale
+    from mccnn_tpu_torch.data.prefetch import BatchPrefetcher
+    from mccnn_tpu_torch.data.sampler import TripletSampler
+    from mccnn_tpu_torch.models.net import (
+        extract_features,
+        init_params,
+        l2_normalize,
+        params_from_numpy,
+        params_to_numpy,
+    )
+    from mccnn_tpu_torch.models.params import load_any
+    from mccnn_tpu_torch.pipeline.match import MatchPipeline, standardize_image
+    from mccnn_tpu_torch.pipeline.train import (
+        batch_to_device,
+        make_optimizer,
+        make_train_step,
+        momentum_to_numpy,
+    )
+    from mccnn_tpu_torch.utils.checkpoint import latest_checkpoint
+    from mccnn_tpu_torch.utils.config import TrainConfig
+
+    config = TrainConfig()
+    root = os.path.join(ROOT, "build", "train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_training_scenes(root)
+    log(f"  (a) {len(TRAIN_SCENES)} scenes {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]} "
+        f"written in {time.perf_counter() - t0:.2f} s")
+
+    # (b) the CLI on the card
+    checkpoints = os.path.join(root, "ckpt")
+    logs = os.path.join(root, "logs")
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["--list_dir", root, "--tensorboard_dir", logs,
+                  "--checkpoint_dir", checkpoints, "--end_epoch",
+                  str(TRAIN_EPOCHS), "--print_freq", "1", "--sampler_backend",
+                  "native", "--device", str(device), "--seed", str(SEED)])
+    cli_seconds = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError("the native sampler library did not load")
+    for epoch in range(1, TRAIN_EPOCHS + 1):
+        path = os.path.join(checkpoints, f"model_epoch{epoch}.npz")
+        if not os.path.exists(path):
+            raise AssertionError(f"cli.train wrote no {path}")
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    events = {r["event"] for r in records}
+    if not {"start", "train", "checkpoint", "val"} <= events:
+        raise AssertionError(f"metrics.jsonl holds the events {events}")
+    cli_losses = [r["hinge_loss"] for r in records if r["event"] == "train"]
+    val_losses = [r["val_hinge_loss"] for r in records if r["event"] == "val"]
+    if not np.isfinite(cli_losses + val_losses).all():
+        raise AssertionError(f"non-finite CLI losses {cli_losses}")
+    log(f"  (b) cli.train on {device}: {TRAIN_EPOCHS} epochs of "
+        f"{len(TRAIN_SCENES)} steps in {cli_seconds:.2f} s (dataset load "
+        f"included), model_epoch1..{TRAIN_EPOCHS}.npz and events "
+        f"{sorted(events)}; losses {[round(x, 4) for x in cli_losses]}, val "
+        f"{[round(x, 4) for x in val_losses]}")
+
+    # (c) the card against the CPU on the same three sampler batches
+    params = init_params(SEED)
+    lists = os.path.join(root, "train.txt")
+    sampler = TripletSampler(StereoDataset(lists, shuffle=True, seed=SEED),
+                             seed=SEED, backend="native")
+    batches = [sampler.next_batch(config.batch_size) for _ in range(3)]
+
+    def steps_on(where):
+        net = params_from_numpy(params).to(where)
+        optimizer = make_optimizer(config, net)
+        step = make_train_step(config, net, optimizer)
+        losses = [float(step(batch_to_device(b, where))) for b in batches]
+        return losses, params_to_numpy(net), momentum_to_numpy(net, optimizer)
+
+    card, cpu = steps_on(device), steps_on("cpu")
+    if (torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("TF32 is on for the train step")
+    loss_err = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+    errors = {"loss": loss_err}
+    for what, index in (("params", 1), ("momentum", 2)):
+        worst = 0.0
+        for name, layer in cpu[index].items():
+            for kind, want in layer.items():
+                err = float(np.abs(card[index][name][kind] - want).max())
+                scale = float(np.abs(want).max())
+                worst = max(worst, err / scale)
+                if not err <= TRAIN_REL_TOL * scale:
+                    raise AssertionError(
+                        f"{what} {name}/{kind}: card and CPU {err} apart at "
+                        f"a scale of {scale}")
+        errors[what] = worst
+    log(f"  (c) 3 steps, card against CPU: losses {card[0]} / {cpu[0]}, "
+        f"max |diff| {loss_err:.3e} (tol {TRAIN_LOSS_TOL:.0e}); largest "
+        f"|diff| / max |leaf| over the 10 params {errors['params']:.3e}, "
+        f"over the 10 momentum traces {errors['momentum']:.3e} (tol "
+        f"{TRAIN_REL_TOL:.0e})")
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"card and CPU losses {loss_err} apart")
+
+    # (d) steps/s: a fixed batch with no host sync between steps, then fed
+    # by the sampler through the prefetcher
+    net = params_from_numpy(params).to(device)
+    step = make_train_step(config, net)
+    fixed = batch_to_device(batches[0], device)
+    for _ in range(5):  # first use: cuDNN's choices, the allocator
+        step(fixed)
+    torch.cuda.synchronize()
+    # the fixed-batch rate is a device rate only if no step waits for it
+    syncs = synchronizing_calls(lambda: step(fixed))
+    log(f"  synchronizing calls in one train step: {len(syncs)}")
+    if syncs:
+        raise AssertionError(f"the train step synchronized: {syncs[:3]}")
+    net = params_from_numpy(params).to(device)
+    step = make_train_step(config, net)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = torch.stack([step(fixed) for _ in range(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    fixed_rate = TRAIN_STEPS / (time.perf_counter() - t0)
+    losses = losses.cpu().numpy()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"fixed-batch loss {losses[0]} -> {losses[-1]}")
+    log(f"  (d) fixed batch: {fixed_rate:.1f} steps/s over {TRAIN_STEPS} "
+        f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; {smi}")
+    _, kernel_ms, table = profiled(lambda: [step(fixed) for _ in range(20)])
+    with open(os.path.join(ROOT, "build", "profile_train.txt"), "w") as f:
+        f.write(table)
+
+    sampler = TripletSampler(StereoDataset(lists, shuffle=True, seed=SEED),
+                             seed=SEED, backend="native")
+    t0 = time.perf_counter()
+    for _ in range(50):
+        sampler.next_batch(config.batch_size)
+    sample_ms = (time.perf_counter() - t0) * 1e3 / 50
+    t0 = time.perf_counter()
+    for _ in range(50):
+        batch_to_device(batches[0], device)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3 / 50
+    net = params_from_numpy(params).to(device)
+    step = make_train_step(config, net)
+    sampler.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with BatchPrefetcher(sampler, config.batch_size,
+                         epoch_len=TRAIN_STEPS) as feed:
+        fed = torch.stack([
+            step(batch_to_device(feed.next_batch(), device))
+            for _ in range(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+    fed_rate = TRAIN_STEPS / (time.perf_counter() - t0)
+    # the same without the prefetch thread (--prefetch_batches 0): the
+    # host samples, copies and steps in turn
+    sampler.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed = torch.stack([fed, torch.stack([
+        step(batch_to_device(sampler.next_batch(config.batch_size), device))
+        for _ in range(TRAIN_STEPS)])])
+    torch.cuda.synchronize()
+    sync_rate = TRAIN_STEPS / (time.perf_counter() - t0)
+    if not bool(torch.isfinite(fed).all()):
+        raise AssertionError("non-finite loss in the fed runs")
+    log(f"  (d) fed by the native sampler through the prefetcher: "
+        f"{fed_rate:.1f} steps/s over {TRAIN_STEPS} steps; without the "
+        f"prefetch thread {sync_rate:.1f} (sampler alone {sample_ms:.3f} ms "
+        f"a batch, host-to-card copy {copy_ms:.3f} ms); {smi}")
+
+    # (e) serve the last checkpoint on the card
+    path = latest_checkpoint(checkpoints)
+    pipeline = MatchPipeline(load_any(path), volume_dtype="bfloat16",
+                             bucket=8, device=device)
+    scene_dir = os.path.join(root, "data", TRAIN_SCENES[0])
+    left, right = (standardize_image(load_grayscale(
+        os.path.join(scene_dir, name))) for name in ("im0.png", "im1.png"))
+    pipeline(left, right, MAIN_NDISP)  # first use of these weights
+    torch.cuda.synchronize()
+    launches.reset()
+    t0 = time.perf_counter()
+    disparity = pipeline(left, right, MAIN_NDISP)
+    serve_seconds = time.perf_counter() - t0
+    counts = launches.snapshot()
+    check_counts("trained serve", counts)
+    if disparity.shape != MAIN_SHAPE or not np.isfinite(disparity).all():
+        raise AssertionError("the trained weights served a bad disparity")
+    # the ReLU written as max(x, 0) gives F.relu's features bit for bit
+    image = pipeline._to_device(left)
+    with torch.no_grad():
+        x = torch.nn.functional.pad(image, (pipeline.net.pad,) * 4)[None, None]
+        for i, conv in enumerate(pipeline.net.convs):
+            x = conv(x)
+            if i < len(pipeline.net.convs) - 1:
+                x = torch.nn.functional.relu(x)
+        relu_features = l2_normalize(x[0].permute(1, 2, 0), dim=-1)
+        equal = torch.equal(extract_features(pipeline.net, image),
+                            relu_features)
+    if not equal:
+        raise AssertionError("serving features differ from an F.relu forward")
+    log(f"  (e) {os.path.basename(path)} served through MatchPipeline: "
+        f"{serve_seconds:.4f} s/pair, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, finite; features equal "
+        "an F.relu forward bit for bit")
+    summary = {
+        "net": "fast, 5 x 3x3 convs, 64 maps, 11 x 11 patches",
+        "batch": config.batch_size, "card": smi,
+        "fixed_batch_steps_per_s": fixed_rate,
+        "fed_steps_per_s": fed_rate, "fed_sync_steps_per_s": sync_rate,
+        "fixed_batch_loss": [float(losses[0]), float(losses[-1])],
+        "kernel_ms_per_step": kernel_ms / 20,
+        "sampler_ms_per_batch": sample_ms, "copy_ms_per_batch": copy_ms,
+        "card_vs_cpu": errors, "cli_seconds": cli_seconds,
+    }
+    return summary, counts
 
 
 def main() -> int:
@@ -1663,6 +1967,12 @@ def main() -> int:
     phase("profile of one main-path pair")
     profile_pair(pipeline)
 
+    phase(f"training: the fast net at full width, TrainConfig() defaults, "
+          f"scenes {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]}; cli.train, card "
+          "against CPU, steps/s, the trained weights served")
+    training, launches["trained serve"] = drive_training(
+        device, build.LAUNCHES, smi)
+
     summary = {"kernels": [
         {
             "name": name,
@@ -1685,6 +1995,10 @@ def main() -> int:
     log(f"serving pair {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]}, ndisp {MAIN_NDISP}, "
         f"bf16: {serving['s_per_pair']:.4f} s/pair, peak device memory "
         f"{serving['peak_gb']:.2f} GB")
+    log(f"training (fast net, batch {training['batch']}): "
+        f"{training['fixed_batch_steps_per_s']:.1f} steps/s on a fixed batch,"
+        f" {training['fed_steps_per_s']:.1f} steps/s fed by the sampler "
+        f"through the prefetcher; {json.dumps(training)}")
     log(smi)
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

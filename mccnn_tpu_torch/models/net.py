@@ -2,12 +2,13 @@
 
 Five 3x3 VALID convolutions with 64 maps, ReLU on all but the last, then
 L2 normalization over channels: a zero-padded (H+10, W+10) image maps to an
-(H, W, 64) field of unit descriptors.
+(H, W, 64) field of unit descriptors, an 11 x 11 training patch to one
+(``patch_descriptors``). One net serves matching and training.
 
 Weights are kept as PyTorch's OIHW; ``params_from_numpy`` takes the JAX
 package's ``{"conv{i}": {"w": HWIO, "b": (64,)}}`` tree. f32 convolutions
-must not run in TF32 on the card (cuDNN's default): the pipeline turns
-TF32 off (pipeline/match.py).
+must not run in TF32 on the card (cuDNN's default): the matching and
+training pipelines call ``disable_tf32`` first.
 """
 
 from __future__ import annotations
@@ -48,17 +49,37 @@ class FeatureNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         last = len(self.convs) - 1
+        zero = x.new_zeros(())
         for i, conv in enumerate(self.convs):
             x = conv(x)
             if i < last:
-                x = F.relu(x)
+                # jnp.maximum(x, 0.0), as in the JAX package: the same
+                # values as F.relu, but a tie at 0 sends half the gradient
+                # to each side (F.relu sends none). Training meets ties:
+                # biases start at 0 and windows in the zero padding of
+                # border patches give exactly 0.
+                x = torch.maximum(x, zero)
         return x
+
+
+def disable_tf32() -> None:
+    """f32 convolutions and matrix products in f32 on the card, as the JAX
+    reference computes them, not in TF32 (cuDNN's default)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """x * rsqrt(max(sum(x^2), eps)) -- tf.nn.l2_normalize semantics."""
     sq = torch.sum(x * x, dim=dim, keepdim=True)
     return x * torch.rsqrt(torch.clamp(sq, min=_L2_NORMALIZE_EPS))
+
+
+def patch_descriptors(net: FeatureNet, patches: torch.Tensor) -> torch.Tensor:
+    """(B, p, p, 1) training patches (the sampler's NHWC layout) -> (B, 64)
+    unit descriptors (mccnn_tpu/models/net.py::patch_descriptors)."""
+    features = net(patches.permute(0, 3, 1, 2))
+    return l2_normalize(features.reshape(features.shape[0], -1), dim=-1)
 
 
 def extract_features(net: FeatureNet, image: torch.Tensor) -> torch.Tensor:
@@ -112,4 +133,16 @@ def params_from_numpy(params: NumpyParams) -> FeatureNet:
             conv.bias.copy_(torch.from_numpy(np.array(layer["b"],
                                                       np.float32)))
     return net.eval().requires_grad_(False)
+
+
+def params_to_numpy(net: FeatureNet) -> NumpyParams:
+    """The inverse of ``params_from_numpy``: HWIO weights, as the JAX
+    package keeps them."""
+    return {
+        f"conv{i}": {
+            "w": conv.weight.detach().permute(2, 3, 1, 0).cpu().numpy().copy(),
+            "b": conv.bias.detach().cpu().numpy().copy(),
+        }
+        for i, conv in enumerate(net.convs, start=1)
+    }
 

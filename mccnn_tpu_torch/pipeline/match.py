@@ -38,6 +38,7 @@ import torch
 
 from mccnn_tpu_torch.models.net import (
     FeatureNet,
+    disable_tf32,
     extract_features,
     params_from_numpy,
 )
@@ -121,11 +122,6 @@ def _run_cbca(aggregate, volume: torch.Tensor, arms, iterations: int,
     return volume
 
 
-def _disable_tf32() -> None:
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def _post_stages(ndisp: int, config: MatchConfig):
     """The four post-WTA stages as (name, fn(state) -> state) steps.
 
@@ -190,7 +186,7 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
     the per-side WTA maps.
     """
     _check_options(config, volume_dtype, cbca_impl, cost_volume_method)
-    _disable_tf32()
+    disable_tf32()
     vdtype = _VOLUME_DTYPES[volume_dtype]
     distance = int(config.cbca_distance)
     aggregate = _cbca_aggregate(cbca_impl)
@@ -422,7 +418,7 @@ class MatchPipeline:
         once (built by one K5 launch with the band methods): it needs about
         twice ``__call__``'s memory.
         """
-        _disable_tf32()
+        disable_tf32()
         height, width = left_image.shape
         left, right = self._padded_on_device(left_image, right_image)
         stages = _build_staged(

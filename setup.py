@@ -19,6 +19,7 @@ setup(
             "mccnn-match=mccnn_tpu.cli.match:main",
             "mccnn-match-torch=mccnn_tpu_torch.cli.match:main",
             "mccnn-eval-torch=mccnn_tpu_torch.cli.eval:main",
+            "mccnn-train-torch=mccnn_tpu_torch.cli.train:main",
         ]
     },
 )

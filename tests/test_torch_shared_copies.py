@@ -1,9 +1,10 @@
 """The port's own copies of the numpy-only modules against the JAX package's.
 
 ``mccnn_tpu_torch`` imports nothing of ``mccnn_tpu``; it keeps copies of
-the configs, the scene generator, the scores and the Middlebury file
-formats. These tests hold each copy to the original on the same inputs, so
-configs, scene directories and artifacts stay interchangeable.
+the configs, the scene generator, the scores, the Middlebury file formats
+and the training data path (dataset, triplet sampler, prefetcher). These
+tests hold each copy to the original on the same inputs, so configs, scene
+directories, artifacts and batch streams stay interchangeable.
 """
 
 import dataclasses
@@ -21,7 +22,7 @@ PAIRS = {
            importlib.import_module(f"mccnn_tpu_torch.{name}"))
     for name in ("utils.config", "utils.scenes", "utils.evaluate",
                  "utils.metrics", "io.pfm", "io.calib", "io.middlebury",
-                 "data.dataset")
+                 "data.dataset", "data.sampler", "data.prefetch")
 }
 
 
@@ -158,3 +159,72 @@ def test_load_grayscale_equal(tmp_path, rng):
     np.testing.assert_array_equal(
         got, theirs.load_grayscale(str(tmp_path / "im.png")))
     assert got.dtype == np.float32 and got.shape == (9, 14)
+
+
+def _training_lists(tmp_path, rng):
+    from torch_parity import write_training_scenes
+
+    return write_training_scenes(tmp_path, rng, count=3, height=32, width=40)
+
+
+def test_standardize_and_dataset_equal(tmp_path, rng):
+    theirs, ours = PAIRS["data.dataset"]
+    image = rng.uniform(0, 255, (9, 13)).astype(np.float32)
+    np.testing.assert_array_equal(ours.standardize(image),
+                                  theirs.standardize(image))
+    train = str(_training_lists(tmp_path, rng) / "train.txt")
+    want = theirs.StereoDataset(train, shuffle=True, seed=3)
+    got = ours.StereoDataset(train, shuffle=True, seed=3)
+    assert len(got) == len(want) == 3
+    for _ in range(2):
+        for index in range(len(want)):
+            for a, b in zip(got.get(index), want.get(index)):
+                np.testing.assert_array_equal(a, b)
+        got.reshuffle()
+        want.reshuffle()
+    for a, b in zip(got.next_pair(), want.next_pair()):
+        np.testing.assert_array_equal(a, b)
+
+
+def _samplers(tmp_path, rng, **kw):
+    """The JAX and the port sampler on the same list, shuffle and seed."""
+    data, sampler = PAIRS["data.dataset"], PAIRS["data.sampler"]
+    train = str(_training_lists(tmp_path, rng) / "train.txt")
+    return [s.TripletSampler(d.StereoDataset(train, shuffle=True, seed=7),
+                             seed=5, **kw)
+            for d, s in zip(data, sampler)]
+
+
+def _batches(feed, epochs=2, epoch_len=3, batch_size=8):
+    out = []
+    for _ in range(epochs):
+        out += [feed.next_batch(batch_size) for _ in range(epoch_len)]
+        feed.reset()
+    return out
+
+
+def _assert_streams_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.shape == (8, 11, 11, 1) and a.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+
+
+def test_triplet_sampler_numpy_stream_equal(tmp_path, rng):
+    """One seed, the same batches bit for bit, across a reshuffle."""
+    theirs, ours = _samplers(tmp_path, rng)
+    assert ours.backend == theirs.backend == "numpy"
+    _assert_streams_equal(_batches(ours), _batches(theirs))
+
+
+def test_prefetcher_stream_equal(tmp_path, rng):
+    """The port's prefetcher gives the JAX prefetcher's stream, which is
+    the synchronous sampler's, across ``reset()``."""
+    (theirs_prefetch, ours_prefetch) = PAIRS["data.prefetch"]
+    theirs, ours = _samplers(tmp_path, rng)
+    with theirs_prefetch.BatchPrefetcher(theirs, 8, epoch_len=3) as feed:
+        want = _batches(feed)
+    with ours_prefetch.BatchPrefetcher(ours, 8, epoch_len=3) as feed:
+        got = _batches(feed)
+    _assert_streams_equal(got, want)

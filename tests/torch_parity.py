@@ -93,3 +93,44 @@ def require_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def border_batch(rng, size=16, patch=11):
+    """A (left, pos, neg) batch of (size, patch, patch, 1) patches in which
+    some patches lie partly in the zero padding the sampler adds at the
+    image borders: a 3 x 3 window wholly in it gives an activation of
+    exactly 0 (a ReLU tie) while the biases are 0."""
+    batch = [rng.standard_normal((size, patch, patch, 1)).astype(np.float32)
+             for _ in range(3)]
+    for x in batch:
+        x[:size // 4, :4] = 0  # top border rows
+        x[size // 4:size // 2, :, :3] = 0  # left border columns
+        x[size // 2:size // 2 + 2, 7:, 8:] = 0  # a bottom-right corner
+    return batch
+
+
+def write_training_scenes(root, rng, count=2, height=32, width=40,
+                          lists=("train", "val")):
+    """``count`` random scenes in the Middlebury layout (im0.png, im1.png,
+    disp0GT.pfm, calib.txt) under ``root/data`` and one list file per name
+    in ``lists`` naming all of them; returns ``root``."""
+    from PIL import Image
+
+    from mccnn_tpu_torch.io.pfm import write_pfm
+
+    lines = []
+    for i in range(count):
+        scene = root / "data" / f"s{i}"
+        scene.mkdir(parents=True)
+        for name in ("im0.png", "im1.png"):
+            pixels = (rng.random((height, width)) * 255).astype(np.uint8)
+            Image.fromarray(pixels, mode="L").save(scene / name)
+        gt = rng.uniform(0, 12, (height, width)).astype(np.float32)
+        gt[rng.random((height, width)) < 0.1] = np.inf  # unknown disparity
+        write_pfm(gt, str(scene / "disp0GT.pfm"))
+        (scene / "calib.txt").write_text(
+            f"width={width}\nheight={height}\nndisp=16\n")
+        lines.append(str(scene / "im0.png"))
+    for name in lists:
+        (root / f"{name}.txt").write_text("\n".join(lines) + "\n")
+    return root
