@@ -70,12 +70,22 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      200 steps) and fed by the sampler through the prefetcher, with a
      profile of 20 steps (``build/profile_train.txt``); then the last
      checkpoint through ``MatchPipeline`` on one scene (K1 2, K2 36, K3 8
-     launches) and its features against an ``F.relu`` forward, bit for bit.
+     launches) and its features against an ``F.relu`` forward, bit for bit;
+  9. drives the quality loop: ``mccnn_tpu_torch.tools.train_fullscale`` on
+     the card for ``QUALITY_EPOCHS`` epochs of its 15 noisy 256 x 384
+     scenes (3,000 steps), then its two evaluations at 1000 x 1504, ndisp
+     162, on the five scene families (the trained weights and random init,
+     fast schedule: K1 2, K2 36, K3 8 a pair); ``tools.eval_fullscale`` on
+     the first family with the exact cross-check (the exact pair: K1 0, K2
+     36, K3 8); ``tools.parity_eval`` on the card against the oracle chain.
+     It fails on a non-finite pixel, a family whose trained bad-2.0 is worse
+     than random init's by more than 0.005, fast and exact more than 0.005
+     apart, or a scene more than 0.005 from the oracle chain.
 
 Every failed phase raises, so the exit code is non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 The last lines are the serving pair's seconds and peak device memory, the
-training summary (both steps/s), the card, the per-kernel JSON summary and
+training summary (both steps/s), the quality summary, the card, the per-kernel JSON summary and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -144,6 +154,17 @@ PER_PAIR = {
     "stream probe": {"cbca_stream": PROBE_ITERS + 2},
     # the training phase's last checkpoint through the serving path
     "trained serve": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
+    # phase 9: train_fullscale's two evaluations (fast pairs only), one
+    # eval_fullscale run on one family (a fast pair, then the exact pair:
+    # f32 volumes by matrix products, K2 in f32, K3) and parity_eval (per
+    # scene: the exact row, K1 2, K2 6 (2 x (1 + 2) rounds), K3 8, and
+    # the mxu row, K1 2, K3 8)
+    "quality train_fullscale": {"band_side": 2, "cbca_round": 36,
+                                "sgm_sweep": 8},
+    "quality eval_fullscale": {"band_side": 2, "cbca_round": 36 + 36,
+                               "sgm_sweep": 8 + 8},
+    "quality parity_eval": {"band_side": 4, "cbca_round": 6,
+                            "sgm_sweep": 16},
 }
 # the path whose launch count stands in the summary line for each kernel
 OWN_PATH = {
@@ -181,6 +202,11 @@ TRAIN_STEPS = 200
 # is held to 1e-4 of its largest entry, each loss (about 0.2) to 1e-5
 TRAIN_REL_TOL = 1e-4
 TRAIN_LOSS_TOL = 1e-5
+# the quality phase: train_fullscale's recipe cut to 200 epochs (3,000
+# steps), evaluated at the main shape with ndisp 162 on the training noise
+QUALITY_EPOCHS = 200
+QUALITY_NOISE = 0.25
+QUALITY_BUDGET = 0.005  # bad-2.0: fast vs exact, trained vs random init
 # the card's published peaks (H100 SXM data sheet, dense): device memory
 # rate; f32 outside the tensor cores, bf16 and int8 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -1902,6 +1928,93 @@ def drive_training(device, launches, smi: str):
     return summary, counts
 
 
+def drive_quality(device, launches, smi: str):
+    """Phase 9: the quality loop. (a) ``tools.train_fullscale`` for
+    ``QUALITY_EPOCHS`` epochs (15 scenes, 3,000 steps), then its two
+    evaluations (trained and random init, five families, fast schedule) at
+    the main shape, ndisp 162; (b) ``tools.eval_fullscale`` on the first
+    family with the exact cross-check; (c) ``tools.parity_eval`` on the
+    card against the oracle chain. Returns (summary, launch counts by
+    path)."""
+    import shutil
+
+    from mccnn_tpu_torch.tools import eval_fullscale, parity_eval
+    from mccnn_tpu_torch.tools import train_fullscale
+
+    counts = {}
+    root = os.path.join(ROOT, "build", "quality")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    launches.reset()
+    out = train_fullscale.run([
+        "--epochs", str(QUALITY_EPOCHS), "--out", root, "--noise",
+        str(QUALITY_NOISE), "--device", str(device)])
+    counts["quality train_fullscale"] = launches.snapshot()
+    seconds = {"train_fullscale": time.perf_counter() - t0}
+    check_counts("quality train_fullscale", counts["quality train_fullscale"],
+                 2 * len(eval_fullscale.FAMILIES))
+    trained = out["results"]["self-trained"]["results"]
+    random_init = out["results"]["random-init"]["results"]
+    for row in trained + random_init:
+        if row["nonfinite"]:
+            raise AssertionError(f"{row['family']}: {row['nonfinite']} "
+                                 "non-finite pixels")
+    table = {mine["family"]: (mine["bad_2.0"], theirs["bad_2.0"])
+             for mine, theirs in zip(trained, random_init)}
+    for family, (mine, theirs) in table.items():
+        if not mine <= theirs + QUALITY_BUDGET:
+            raise AssertionError(f"{family}: trained bad-2.0 {mine} is worse "
+                                 f"than random init's {theirs}")
+    log(f"  (a) train_fullscale: {out['steps']} steps at "
+        f"{out['steps_per_s']:.1f} steps/s ({out['train_seconds']:.1f} s with "
+        f"the scenes' load), then 2 x {len(table)} pairs; {smi}")
+
+    # (b) the exact cross-check on the first family, with the trained weights
+    ckpt = os.path.join(root, "ckpt", f"model_epoch{QUALITY_EPOCHS}.npz")
+    t0 = time.perf_counter()
+    launches.reset()
+    result = eval_fullscale.main([
+        "--weights", ckpt, "--families", eval_fullscale.FAMILIES[0],
+        "--noise", str(QUALITY_NOISE), "--device", str(device)])
+    counts["quality eval_fullscale"] = launches.snapshot()
+    seconds["eval_fullscale"] = time.perf_counter() - t0
+    check_counts("quality eval_fullscale", counts["quality eval_fullscale"])
+    fast, exact = result["results"]
+    if fast["nonfinite"] or exact["nonfinite"]:
+        raise AssertionError(f"non-finite pixels: {result['results']}")
+    delta = abs(fast["bad_2.0"] - exact["bad_2.0"])
+    if not delta <= QUALITY_BUDGET:
+        raise AssertionError(f"fast and exact bad-2.0 {delta} apart")
+    log(f"  (b) eval_fullscale {fast['family']}: fast {fast['bad_2.0']:.4f}, "
+        f"exact {exact['bad_2.0']:.4f}, |delta| {delta:.4f} (budget "
+        f"{QUALITY_BUDGET}); the fast pair in (a) {table[fast['family']][0]:.4f}"
+        f"; launches {counts['quality eval_fullscale']}: the exact pair "
+        "K1 0, K2 36, K3 8 beside the fast pair's K1 2, K2 36, K3 8")
+
+    # (c) the port on the card against the oracle chain on the host
+    t0 = time.perf_counter()
+    launches.reset()
+    parity = parity_eval.run(str(device), log=lambda line: log("    " + line))
+    counts["quality parity_eval"] = launches.snapshot()
+    seconds["parity_eval"] = time.perf_counter() - t0
+    check_counts("quality parity_eval", counts["quality parity_eval"],
+                 len(parity))
+    worst = max(parity_eval.worst_delta(scores) for scores in parity.values())
+    if not worst <= parity_eval.BUDGET:
+        raise AssertionError(f"parity_eval: bad-2.0 {worst} from the oracle")
+    log(f"  (c) parity_eval on {device}: {len(parity)} scenes, max |bad-2.0 "
+        f"delta| to the oracle chain {worst:.4f} (budget {parity_eval.BUDGET})")
+    summary = {
+        "steps": out["steps"], "steps_per_s": out["steps_per_s"],
+        "train_seconds": out["train_seconds"],
+        "photo_source": result["photo_source"],
+        "bad_2.0 trained, random init": table,
+        "fast_vs_exact": delta, "parity_worst": worst, "seconds": seconds,
+        "card": smi,
+    }
+    return summary, counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "mccnn_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repository",
@@ -1973,6 +2086,15 @@ def main() -> int:
     training, launches["trained serve"] = drive_training(
         device, build.LAUNCHES, smi)
 
+    phase(f"quality: train_fullscale ({QUALITY_EPOCHS} epochs, 15 scenes), "
+          f"per-family bad-2.0 at {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]}, ndisp "
+          "162, trained and random init; the exact cross-check; parity_eval "
+          "against the oracle chain")
+    quality_started = time.perf_counter()
+    quality, quality_counts = drive_quality(device, build.LAUNCHES, smi)
+    launches.update(quality_counts)
+    quality["phase_seconds"] = time.perf_counter() - quality_started
+
     summary = {"kernels": [
         {
             "name": name,
@@ -1999,6 +2121,9 @@ def main() -> int:
         f"{training['fixed_batch_steps_per_s']:.1f} steps/s on a fixed batch,"
         f" {training['fed_steps_per_s']:.1f} steps/s fed by the sampler "
         f"through the prefetcher; {json.dumps(training)}")
+    log(f"quality ({quality['steps']} steps at {quality['steps_per_s']:.1f} "
+        f"steps/s, phase {quality['phase_seconds']:.1f} s; photo source: "
+        f"{quality['photo_source']}): {json.dumps(quality)}")
     log(smi)
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

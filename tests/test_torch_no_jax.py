@@ -31,7 +31,9 @@ def test_port_modules_import_without_jax():
     for new in ("ops.cbca_rolling", "ops.cbca_fused2", "ops.cbca_mxu",
                 "ops.cbca_joint", "cli.eval", "tools.bench_cbca_stream",
                 "pipeline.train", "utils.checkpoint", "data.sampler",
-                "data.prefetch", "native", "cli.train"):
+                "data.prefetch", "native", "cli.train",
+                "tools.eval_fullscale", "tools.train_fullscale",
+                "tools.parity_eval"):
         assert f"mccnn_tpu_torch.{new}" in modules
     assert "mccnn_tpu_torch.shared" not in modules
     code = (
