@@ -80,13 +80,29 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      36, K3 8); ``tools.parity_eval`` on the card against the oracle chain.
      It fails on a non-finite pixel, a family whose trained bad-2.0 is worse
      than random init's by more than 0.005, fast and exact more than 0.005
-     apart, or a scene more than 0.005 from the oracle chain.
+     apart, or a scene more than 0.005 from the oracle chain;
+ 10. drives ``parallel/`` on two ranks that share the card over gloo (NCCL
+     takes one rank per card): ``make_sharded_match``
+     (``tools/multichip_midscale.py``, one spawn) at 1000 x 1504, ndisp
+     200, on the serving (bf16, fused: K1 2, K2 36, K3 8 a rank), exact
+     (f32, pallas: K7 36) and fused8 (K4 36) schedules and at 256 x 384 on
+     fused2 (3 + 5 rounds: K9 6, K2 4) and rolling (K8 36), each rank's
+     pre-WTA volume rows against the unsharded ``match_pair`` on the card
+     (f32 atol 1e-4 / rtol 1e-6, bf16 one ulp at the cost scale, fused8 bit
+     for bit), the WTA maps' differing pixels, the bad-2.0 delta (<= 0.005),
+     exact launch counts a rank, the halo, reshard and gather bytes and
+     seconds, each rank's peak memory beside the unsharded pair's, s/pair;
+     the DP step on two ranks (batch 128) against one process (replicas
+     bit-identical); ``cli.train --data_parallel`` on NCCL with one rank
+     against the plain CLI (phase 8's rule); ``cli.match --multihost`` in
+     two processes over three scenes, each written once by its owner.
 
 Every failed phase raises, so the exit code is non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 The last lines are the serving pair's seconds and peak device memory, the
-training summary (both steps/s), the quality summary, the card, the per-kernel JSON summary and
-``{"ok": true, "device": {...}}``.
+training summary (both steps/s), the quality summary, the sharded summary,
+the card, the per-kernel JSON summary and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -165,6 +181,21 @@ PER_PAIR = {
                                "sgm_sweep": 8 + 8},
     "quality parity_eval": {"band_side": 4, "cbca_round": 6,
                             "sgm_sweep": 16},
+    # phase 10: make_sharded_match on two ranks, launches of each rank
+    # (every pass one kernel call on the rank's halo-extended block)
+    "sharded fused (per rank)": {"band_side": 2, "cbca_round": 36,
+                                 "sgm_sweep": 8},
+    "sharded exact-f32 (per rank)": {"band_side": 2,
+                                     "cbca_stencil_round": 36,
+                                     "sgm_sweep": 8},
+    "sharded fused8 (per rank)": {"band_side": 2, "cbca_round_int8": 36,
+                                  "sgm_sweep": 8},
+    # SHARDED_ODD_ROUNDS: (1 + 2) K9 passes and 1 + 1 odd rounds on K2 a
+    # volume
+    "sharded fused2 (per rank)": {"band_side": 2, "cbca_two_rounds": 6,
+                                  "cbca_round": 4, "sgm_sweep": 8},
+    "sharded rolling (per rank)": {"band_side": 2, "cbca_rolling_round": 36,
+                                   "sgm_sweep": 8},
 }
 # the path whose launch count stands in the summary line for each kernel
 OWN_PATH = {
@@ -207,6 +238,12 @@ TRAIN_LOSS_TOL = 1e-5
 QUALITY_EPOCHS = 200
 QUALITY_NOISE = 0.25
 QUALITY_BUDGET = 0.005  # bad-2.0: fast vs exact, trained vs random init
+# the sharded phase: two ranks share the one card over gloo (NCCL takes one
+# rank per card); fused2 runs 3 + 5 rounds, so each volume ends both CBCA
+# stages on an odd round (K2)
+SHARDED_RANKS = 2
+SHARDED_ODD_ROUNDS = (3, 5)
+MULTIHOST_SCENES = 3
 # the card's published peaks (H100 SXM data sheet, dense): device memory
 # rate; f32 outside the tensor cores, bf16 and int8 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -2015,6 +2052,276 @@ def drive_quality(device, launches, smi: str):
     return summary, counts
 
 
+def drive_sharded(device, smi: str):
+    """Phase 10: ``parallel/`` on two ranks that share the card over gloo.
+    (a) ``make_sharded_match`` (``tools/multichip_midscale.py``, one spawn)
+    at the main shape on the serving (bf16, fused: K1, K2, K3), exact (f32,
+    pallas: K7) and fused8 (K4, bit-equal) schedules, and fused2 (K9 with
+    odd rounds) and rolling (K8) at the middle shape, each against the
+    unsharded ``match_pair`` on the same card; (b) the data-parallel step
+    on two ranks against the single-process step; (c) ``cli.train
+    --data_parallel`` (NCCL, one rank) against the plain CLI; (d)
+    ``cli.match --multihost`` in two processes over three scenes. Returns
+    {path: rank 0's launch counts}."""
+    import shutil
+
+    import torch
+    from mccnn_tpu_torch.cli import train as train_cli
+    from mccnn_tpu_torch.data.dataset import StereoDataset
+    from mccnn_tpu_torch.data.sampler import TripletSampler
+    from mccnn_tpu_torch.io.pfm import read_pfm
+    from mccnn_tpu_torch.models.net import (
+        init_params,
+        params_from_numpy,
+        params_to_numpy,
+    )
+    from mccnn_tpu_torch.models.params import save_params
+    from mccnn_tpu_torch.parallel.launch import run_ranks
+    from mccnn_tpu_torch.pipeline.train import (
+        batch_to_device,
+        make_optimizer,
+        make_train_step,
+        momentum_to_numpy,
+    )
+    from mccnn_tpu_torch.tools import multichip_midscale as midscale
+    from mccnn_tpu_torch.tools import multiprocess_bringup as bringup
+    from mccnn_tpu_torch.utils.config import MatchConfig, TrainConfig
+    from mccnn_tpu_torch.utils.scenes import make_scene
+
+    backend = "gloo"
+    log(f"  {SHARDED_RANKS} ranks on {device} over backend={backend!r} "
+        "(chosen here: NCCL takes one rank per card)")
+    odd = MatchConfig(cbca_num_iterations_1=SHARDED_ODD_ROUNDS[0],
+                      cbca_num_iterations_2=SHARDED_ODD_ROUNDS[1])
+    runs = [  # (path, job)
+        ("sharded fused (per rank)", midscale.job(
+            *MAIN_SHAPE, MAIN_NDISP, volume_dtype="bfloat16",
+            cbca_impl="fused", pairs=2, seed=SEED)),
+        ("sharded exact-f32 (per rank)", midscale.job(
+            *MAIN_SHAPE, MAIN_NDISP, volume_dtype="float32",
+            cbca_impl="pallas", seed=SEED)),
+        ("sharded fused8 (per rank)", midscale.job(
+            *MAIN_SHAPE, MAIN_NDISP, volume_dtype="bfloat16",
+            cbca_impl="fused8", seed=SEED)),
+        ("sharded fused2 (per rank)", midscale.job(
+            *MIDDLE_SHAPE, 64, odd, volume_dtype="bfloat16",
+            cbca_impl="fused2", seed=SEED)),
+        ("sharded rolling (per rank)", midscale.job(
+            *MIDDLE_SHAPE, 64, volume_dtype="bfloat16", cbca_impl="rolling",
+            seed=SEED)),
+    ]
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    results = midscale.run([job for _, job in runs], SHARDED_RANKS,
+                           str(device), backend, timeout_s=900.0)
+    log(f"  (a) one spawn of {SHARDED_RANKS} ranks, {len(runs)} schedules: "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts = {}
+    summary = {}
+    for (path, job), per_rank in zip(runs, results):
+        impl, dtype = job["cbca_impl"], job["volume_dtype"]
+        shape = job["left"].shape
+        log(f"  {path}: {shape[0]} x {shape[1]}, ndisp {job['ndisp']}, "
+            f"{dtype}, cbca_impl {impl}")
+        for r in per_rank:
+            traffic = r["traffic"]
+            log(f"    rank {r['rank']} ({r['device']}, {r['backend']}): "
+                f"pre-WTA max |diff| left {r['left_volume']['max_abs_diff']:.3e}"
+                f" right {r['right_volume']['max_abs_diff']:.3e} (tol "
+                f"{r['left_volume']['tol']:.3e}, bit-equal "
+                f"{r['left_volume']['bit_equal'] and r['right_volume']['bit_equal']})"
+                f"; sharded CBCA stage {r['cbca']['max_abs_diff']:.3e}; WTA "
+                f"differing pixels L {r['left_disparity_differing']} R "
+                f"{r['right_disparity_differing']}; bad-2.0 {r['bad2']:.4f} "
+                f"(delta {r['bad2_delta']:.4f}); disparity max |diff| "
+                f"{r['disparity_max_abs_diff']:.3e}")
+            log(f"      launches {({k: v for k, v in r['launches'].items() if v})}"
+                f"; halo {traffic.get('halo', 0) / 1e6:.1f} MB in "
+                f"{traffic.get('halo_s', 0.0):.3f} s, reshard "
+                f"{traffic.get('reshard', 0) / 1e6:.1f} MB in "
+                f"{traffic.get('reshard_s', 0.0):.3f} s, gather "
+                f"{traffic.get('gather', 0) / 1e6:.3f} MB in "
+                f"{traffic.get('gather_s', 0.0):.3f} s, reduce "
+                f"{traffic.get('reduce', 0)} B; a pair's peak "
+                f"{r['peak_gb']:.2f} GB (unsharded "
+                f"{r['plain_peak_gb']:.2f} GB); "
+                f"{r['s_per_pair']:.4f} s/pair (unsharded "
+                f"{r['plain_s_per_pair']:.4f} s/pair alone on the card)")
+            bad = midscale.failures(r, exact=impl == "fused8")
+            if bad:
+                raise AssertionError(f"{path} rank {r['rank']}: {bad}")
+            check_counts(path, r["launches"])
+        counts[path] = per_rank[0]["launches"]
+        summary[path] = [{k: r[k] for k in (
+            "s_per_pair", "plain_s_per_pair", "peak_gb", "plain_peak_gb",
+            "traffic", "bad2_delta", "left_disparity_differing",
+            "right_disparity_differing")} for r in per_rank]
+    log(f"  {smi}")
+
+    # (b) the DP step on two ranks against one process, on the card
+    config = TrainConfig()
+    root = os.path.join(ROOT, "build", "train_smoke")
+    lists = os.path.join(root, "train.txt")
+    sampler = TripletSampler(StereoDataset(lists, shuffle=True, seed=SEED),
+                             seed=SEED)
+    batches = [sampler.next_batch(config.batch_size) for _ in range(3)]
+    params = init_params(SEED)
+    t0 = time.perf_counter()
+    dp = run_ranks(bringup.dp_steps, SHARDED_RANKS, params, batches, config,
+                   device=str(device), backend=backend, timeout_s=300.0)
+    dp_seconds = time.perf_counter() - t0
+    net = params_from_numpy(params).to(device)
+    optimizer = make_optimizer(config, net)
+    step = make_train_step(config, net, optimizer)
+    losses = [float(step(batch_to_device(b, device))) for b in batches]
+    single = {"params": params_to_numpy(net),
+              "momentum": momentum_to_numpy(net, optimizer)}
+    for tree in ("params_by_step", "momentum"):
+        np.testing.assert_equal(dp[1][tree], dp[0][tree])
+    if dp[0]["losses"] != dp[1]["losses"]:
+        raise AssertionError("the DP replicas' losses differ")
+    loss_err = max(abs(a - b) for a, b in zip(dp[0]["losses"], losses))
+    worst = leaf_errors(dp[0], single)
+    log(f"  (b) DP step, {SHARDED_RANKS} ranks x {config.batch_size // SHARDED_RANKS}"
+        f" of batch {config.batch_size}, 3 steps in {dp_seconds:.1f} s (spawn "
+        f"included): losses {dp[0]['losses']} / one process {losses}, max "
+        f"|diff| {loss_err:.3e} (tol {TRAIN_LOSS_TOL:.0e}); largest |diff| / "
+        f"max |leaf| params {worst['params']:.3e}, momentum "
+        f"{worst['momentum']:.3e} (tol {TRAIN_REL_TOL:.0e}); replicas "
+        "bit-identical")
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"DP and single losses {loss_err} apart")
+
+    # (c) cli.train --data_parallel (NCCL, world size 1) against the plain
+    # CLI, one epoch from the same seed
+    weights = os.path.join(root, "dp_weights.npz")
+    save_params(params, weights)
+    runs_dir = {}
+    for tag, extra in (("plain", []), ("dp", ["--data_parallel"])):
+        out = os.path.join(root, f"cli_{tag}")
+        shutil.rmtree(out, ignore_errors=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(["--list_dir", root, "--tensorboard_dir", out,
+                            "--checkpoint_dir", out, "--end_epoch", "1",
+                            "--print_freq", "1", "--resume", weights,
+                            "--seed", str(SEED), "--device", str(device),
+                            *extra])
+        runs_dir[tag] = out
+    trees = {}
+    records = {}
+    for tag, out in runs_dir.items():
+        with np.load(os.path.join(out, "model_epoch1.npz")) as f:
+            trees[tag] = {key: f[key] for key in f.files
+                          if f[key].dtype.kind == "f"}
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records[tag] = [json.loads(line) for line in f]
+    start = [r for r in records["dp"] if r["event"] == "start"][0]
+    nccl = "nccl" if device.type == "cuda" else "gloo"
+    if (start.get("backend"), start["devices"]) != (nccl, 1):
+        raise AssertionError(f"--data_parallel started {start}")
+    cli_losses = {tag: [r["hinge_loss"] for r in recs
+                        if r["event"] == "train"]
+                  for tag, recs in records.items()}
+    cli_loss_err = max(abs(a - b) for a, b in zip(cli_losses["dp"],
+                                                  cli_losses["plain"]))
+    cli_worst = 0.0
+    for key, want in trees["plain"].items():
+        err = float(np.abs(trees["dp"][key] - want).max())
+        scale = float(np.abs(want).max())
+        cli_worst = max(cli_worst, err / scale)
+        if not err <= TRAIN_REL_TOL * scale:
+            raise AssertionError(f"--data_parallel {key}: {err} from the "
+                                 f"plain CLI at a scale of {scale}")
+    log(f"  (c) cli.train --data_parallel: backend {start['backend']}, "
+        f"{start['devices']} rank; losses {cli_losses['dp']} / plain "
+        f"{cli_losses['plain']}, max |diff| {cli_loss_err:.3e}; largest "
+        f"|diff| / max |leaf| over model_epoch1.npz {cli_worst:.3e} (tol "
+        f"{TRAIN_REL_TOL:.0e})")
+    if not cli_loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"--data_parallel losses {cli_loss_err} apart")
+
+    # (d) cli.match --multihost: two processes, three scenes
+    height, width = MIDDLE_SHAPE
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        rng = np.random.default_rng(SEED + 10)
+        lefts = []
+        for i in range(MULTIHOST_SCENES):
+            scene = make_scene("slanted", rng, height, width, 48)
+            directory = os.path.join(tmp, "data", f"scene{i}")
+            os.makedirs(directory)
+            write_png(scene["left"], os.path.join(directory, "im0.png"))
+            write_png(scene["right"], os.path.join(directory, "im1.png"))
+            with open(os.path.join(directory, "calib.txt"), "w") as f:
+                f.write(f"width={width}\nheight={height}\nndisp=64\n")
+            lefts.append(os.path.join(directory, "im0.png"))
+        with open(os.path.join(tmp, "list.txt"), "w") as f:
+            f.write("\n".join(lefts) + "\n")
+        save_params(params, os.path.join(tmp, "w.npz"))
+        argv = [sys.executable, "-m", "mccnn_tpu_torch.cli.match",
+                "--list_file", os.path.join(tmp, "list.txt"), "--resume",
+                os.path.join(tmp, "w.npz"), "--data_dir",
+                os.path.join(tmp, "data"), "--save_dir",
+                os.path.join(tmp, "out"), "-t", "mh", "-s", "0", "-e",
+                str(MULTIHOST_SCENES - 1), "--volume_dtype", "bfloat16",
+                "--device", str(device), "--multihost"]
+        t0 = time.perf_counter()
+        ranks = [subprocess.Popen(
+            argv, cwd=ROOT, env={**os.environ, "RANK": str(rank),
+                                 "WORLD_SIZE": str(SHARDED_RANKS)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(SHARDED_RANKS)]
+        try:
+            outputs = [proc.communicate(timeout=300)[0] for proc in ranks]
+        finally:
+            for proc in ranks:
+                proc.kill()
+        seconds = time.perf_counter() - t0
+        if any(proc.returncode for proc in ranks):
+            raise AssertionError(f"cli.match --multihost failed: {outputs}")
+        owners = {}
+        for rank, text in enumerate(outputs):
+            for line in text.splitlines():
+                if "event=scene" in line:
+                    index = int(line.split("index=")[1].split()[0])
+                    if index in owners:
+                        raise AssertionError(f"scene {index} matched twice")
+                    owners[index] = rank
+        want = {i: i % SHARDED_RANKS for i in range(MULTIHOST_SCENES)}
+        if owners != want:
+            raise AssertionError(f"scene owners {owners}, want {want}")
+        for i in range(MULTIHOST_SCENES):
+            disparity = read_pfm(os.path.join(
+                tmp, "out", "submit_mh", f"scene{i}", "disp0MCCNN.pfm"))
+            if disparity.shape != MIDDLE_SHAPE or not np.isfinite(
+                    disparity).all():
+                raise AssertionError(f"scene{i}: bad disparity")
+    log(f"  (d) cli.match --multihost, {SHARDED_RANKS} processes with RANK / "
+        f"WORLD_SIZE, {MULTIHOST_SCENES} scenes {height} x {width}: owners "
+        f"{owners}, each written once, finite; {seconds:.1f} s")
+    summary["dp"] = {"loss_err": loss_err, **worst,
+                     "cli_loss_err": cli_loss_err, "cli_rel_err": cli_worst}
+    return counts, summary
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Largest |got - want| / max |want| over the leaves of the ``params``
+    and ``momentum`` trees; raises past ``TRAIN_REL_TOL``."""
+    out = {}
+    for tree in ("params", "momentum"):
+        worst = 0.0
+        for name, layer in want[tree].items():
+            for kind, value in layer.items():
+                err = float(np.abs(got[tree][name][kind] - value).max())
+                scale = float(np.abs(value).max())
+                worst = max(worst, err / scale)
+                if not err <= TRAIN_REL_TOL * scale:
+                    raise AssertionError(
+                        f"{tree} {name}/{kind}: {err} apart at a scale of "
+                        f"{scale}")
+        out[tree] = worst
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "mccnn_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repository",
@@ -2095,6 +2402,14 @@ def main() -> int:
     launches.update(quality_counts)
     quality["phase_seconds"] = time.perf_counter() - quality_started
 
+    phase(f"sharded: parallel/ on {SHARDED_RANKS} ranks sharing the card "
+          f"over gloo; make_sharded_match at {MAIN_SHAPE[0]} x "
+          f"{MAIN_SHAPE[1]} (serving, exact, fused8) and {MIDDLE_SHAPE[0]} "
+          f"x {MIDDLE_SHAPE[1]} (fused2, rolling) against match_pair; the DP "
+          "step; cli.train --data_parallel (NCCL); cli.match --multihost")
+    sharded_counts, sharded = drive_sharded(device, smi)
+    launches.update(sharded_counts)
+
     summary = {"kernels": [
         {
             "name": name,
@@ -2124,6 +2439,13 @@ def main() -> int:
     log(f"quality ({quality['steps']} steps at {quality['steps_per_s']:.1f} "
         f"steps/s, phase {quality['phase_seconds']:.1f} s; photo source: "
         f"{quality['photo_source']}): {json.dumps(quality)}")
+    serve = sharded["sharded fused (per rank)"]
+    log(f"sharded serving pair on {SHARDED_RANKS} ranks (gloo, one card): "
+        f"{max(r['s_per_pair'] for r in serve):.4f} s/pair, a pair's peak "
+        f"{max(r['peak_gb'] for r in serve):.2f} GB a rank (unsharded "
+        f"{max(r['plain_s_per_pair'] for r in serve):.4f} s/pair, "
+        f"{max(r['plain_peak_gb'] for r in serve):.2f} GB); "
+        f"{json.dumps(sharded)}")
     log(smi)
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

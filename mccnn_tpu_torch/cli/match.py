@@ -7,8 +7,12 @@ slicing, all CBCA/SGM/blur hyperparameters, and Middlebury-v3 artifacts
 (``disp0MCCNN.pfm`` / ``.pgm``, ``timeMCCNN.txt``) per scene. ``--device``
 picks the device (default ``cuda``; ``cpu`` runs the plain versions).
 Every ``--cbca_impl`` of the JAX matcher and ``--cbca_joint_regions`` run;
-``--multihost`` and TF1 checkpoints (``--resume`` of a ``.ckpt``) are what
-the port does not run yet, and raise.
+TF1 checkpoints (``--resume`` of a ``.ckpt``) are what the port does not
+read, and raise. ``--multihost`` keeps only this process's scenes of the
+``--start/--end`` range, every ``WORLD_SIZE``-th from ``RANK`` on
+(``parallel/multihost.py::process_slice``: the started process group's
+rank and size, else those variables, else all scenes), so N processes
+started with ``RANK`` 0 .. N-1 write each scene once.
 
 Usage:
 
@@ -101,7 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "from the reference; 1 (default) is strict "
                              "parity")
     parser.add_argument("--multihost", action="store_true",
-                        help="shard scenes across processes (not ported yet)")
+                        help="shard scenes across processes (strided by the "
+                             "process group's rank, else RANK / WORLD_SIZE) "
+                             "inside the --start/--end range")
     parser.add_argument("--stage_times", action="store_true",
                         help="print per-stage wall-clock for every scene. "
                              "Runs the pipeline as ten steps with a device "
@@ -132,8 +138,6 @@ def config_from_args(args) -> MatchConfig:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
-    if args.multihost:
-        raise ValueError("--multihost is not ported yet")
 
     from mccnn_tpu_torch.data.dataset import load_grayscale
     from mccnn_tpu_torch.io.calib import parse_calib
@@ -162,6 +166,12 @@ def main(argv=None) -> None:
     with open(args.list_file) as f:
         scene_paths = [line.strip() for line in f if line.strip()]
 
+    owned = None
+    if args.multihost:
+        from mccnn_tpu_torch.parallel.multihost import process_slice
+
+        owned = set(process_slice(len(scene_paths)))
+
     try:
         from tqdm import tqdm
     except ImportError:  # pragma: no cover
@@ -169,6 +179,8 @@ def main(argv=None) -> None:
 
     for index, left_path in enumerate(tqdm(scene_paths)):
         if index < args.start or index > args.end:
+            continue
+        if owned is not None and index not in owned:
             continue
         paths = derive_scene_paths(left_path, args.data_dir, args.save_dir,
                                    args.tag)

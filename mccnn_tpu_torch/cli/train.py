@@ -7,20 +7,31 @@ save / val frequencies and the paper's hyperparameters, plus ``--device``
 (default ``cuda``; a CUDA request with no card fails). Metrics go to
 ``metrics.jsonl`` (events ``start``, ``train``, ``checkpoint``, ``val``)
 and checkpoints are ``model_epoch{N}.npz`` in the JAX package's format, so
-either package resumes from the other's. ``--data_parallel`` waits for the
-port of ``parallel/`` and raises.
+either package resumes from the other's.
+
+``--data_parallel`` keeps the JAX trainer's meaning, the batch sharded over
+all local devices (``parallel/train.py``): run plainly on ``cuda`` it
+spawns one rank per visible card over NCCL (one card: one rank in this
+process), on ``--device cpu`` it runs one gloo rank; under torchrun
+(``RANK`` and ``WORLD_SIZE`` set) each process joins the given group. Every
+rank draws the same global batch from the same seeded sampler and keeps its
+slice, so the sample stream is the single-process one; only rank 0 writes
+checkpoints and ``metrics.jsonl`` and runs the validation.
 
 Usage:
 
     python -m mccnn_tpu_torch.cli.train --list_dir lists \\
         --tensorboard_dir logs --checkpoint_dir ckpt [--device cpu] \\
         [--resume ckpt/model_epoch3.npz] [--sampler_backend native]
+    torchrun --nproc_per_node 2 -m mccnn_tpu_torch.cli.train \\
+        --data_parallel --device cpu --list_dir lists ...
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,8 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "the JAX trainer's for the same seed (pass its "
                              "weights with --resume to start from them)")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="shard the batch over all local devices (not "
-                             "ported yet)")
+                        help="shard the batch over all local devices (one "
+                             "rank per card; one gloo rank on the CPU; the "
+                             "given group under torchrun)")
     parser.add_argument("--sampler_backend", type=str, default="numpy",
                         choices=["numpy", "native", "auto"],
                         help="host patch-sampler implementation (native = "
@@ -73,10 +85,45 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise ValueError("--data_parallel is not ported yet: it comes with "
-                         "the port of parallel/")
+    if not args.data_parallel:
+        return _train(args)
 
+    import torch
+    import torch.distributed as dist
+
+    from mccnn_tpu_torch.parallel.launch import free_port, run_ranks
+    from mccnn_tpu_torch.parallel.mesh import make_mesh
+    from mccnn_tpu_torch.parallel.multihost import initialize_distributed
+
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError(f"device {args.device!r} requested but CUDA is "
+                           "not available")
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if cuda and not torchrun and torch.cuda.device_count() > 1:
+        run_ranks(_train_rank, torch.cuda.device_count(),
+                  sys.argv[1:] if argv is None else argv, device="cuda",
+                  timeout_s=None)
+        return None
+    if torchrun:
+        initialize_distributed(device=args.device)
+    else:  # one rank: this process
+        initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                               device=args.device)
+    try:
+        _train(args, make_mesh(device=args.device))
+    finally:
+        dist.destroy_process_group()
+    return None
+
+
+def _train_rank(mesh, argv) -> None:
+    """One rank of a spawned ``--data_parallel`` run."""
+    _train(build_parser().parse_args(argv), mesh)
+
+
+def _train(args, mesh=None) -> None:
+    """The training loop; with a ``mesh`` one data-parallel rank of it."""
     import torch
 
     from mccnn_tpu_torch.data.dataset import StereoDataset
@@ -103,10 +150,11 @@ def main(argv=None) -> None:
     from mccnn_tpu_torch.utils.config import TrainConfig
     from mccnn_tpu_torch.utils.metrics import MetricsLogger
 
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {args.device!r} requested but CUDA is "
                            "not available")
+    lead = mesh is None or mesh.rank == 0  # writes files, validates
     config = TrainConfig(
         batch_size=args.batch_size,
         margin=args.margin,
@@ -149,15 +197,31 @@ def main(argv=None) -> None:
     optimizer = make_optimizer(config, net)
     if momentum is not None:
         load_momentum(net, optimizer, momentum)
-    train_step = make_train_step(config, net, optimizer)
+    if mesh is None:
+        train_step = make_train_step(config, net, optimizer)
+
+        def to_device(batch):
+            return batch_to_device(batch, device)
+    else:
+        from mccnn_tpu_torch.parallel.train import (
+            make_dp_train_step,
+            shard_batch,
+        )
+
+        train_step = make_dp_train_step(config, net, mesh, optimizer)
+
+        def to_device(batch):
+            return shard_batch(batch, mesh)
     eval_step = make_eval_step(config, net)
 
     logger = MetricsLogger(
-        os.path.join(args.tensorboard_dir, "metrics.jsonl"),
-        tensorboard_dir=args.tensorboard_dir,
+        os.path.join(args.tensorboard_dir, "metrics.jsonl") if lead else None,
+        echo=lead, tensorboard_dir=args.tensorboard_dir if lead else None,
     )
     logger.log(event="start", train_pairs=len(train_set),
-               val_pairs=len(val_set), devices=1, device=str(device))
+               val_pairs=len(val_set), devices=1 if mesh is None else
+               mesh.size, device=str(device),
+               **({} if mesh is None else {"backend": mesh.backend}))
 
     try:
         from tqdm import tqdm
@@ -177,21 +241,20 @@ def main(argv=None) -> None:
         for epoch in range(start_epoch, config.end_epoch):
             for batch_idx in tqdm(range(len(train_set)),
                                   desc=f"epoch {epoch + 1}", leave=False):
-                batch = batch_to_device(
-                    train_feed.next_batch(config.batch_size), device)
+                batch = to_device(train_feed.next_batch(config.batch_size))
                 loss = train_step(batch)
-                if (batch_idx + 1) % config.print_freq == 0:
+                if lead and (batch_idx + 1) % config.print_freq == 0:
                     logger.log(step=epoch * len(train_set) + batch_idx,
                                event="train", epoch=epoch + 1,
                                batch=batch_idx + 1, hinge_loss=float(loss))
 
-            if (epoch + 1) % config.save_freq == 0:
+            if lead and (epoch + 1) % config.save_freq == 0:
                 path = save_checkpoint(args.checkpoint_dir, epoch + 1,
                                        params_to_numpy(net),
                                        momentum_to_numpy(net, optimizer))
                 logger.log(event="checkpoint", epoch=epoch + 1, path=path)
 
-            if (epoch + 1) % config.val_freq == 0:
+            if lead and (epoch + 1) % config.val_freq == 0:
                 val_loss = 0.0
                 for _ in tqdm(range(len(val_set)), desc="val", leave=False):
                     batch = batch_to_device(

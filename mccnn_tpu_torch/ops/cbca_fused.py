@@ -75,15 +75,30 @@ def _quantize_int8(volume: torch.Tensor):
     in magnitude, so q == 127 identifies BIG: the lanes average only among
     themselves and stay 127 under integer-average rounds.
     """
+    scale = int8_scale(int8_amax(volume))
+    return quantize_int8(volume, scale), scale
+
+
+def int8_amax(volume: torch.Tensor) -> torch.Tensor:
+    """0-d f32 largest |value| of the valid (non-BIG) lanes. The sharded
+    matcher takes it over every shard (a max is exact in any order) and
+    then quantizes each shard as the whole volume would be."""
     vol_f = volume.float()
-    big = vol_f >= _BIG_CUTOFF
-    amax = torch.where(big, 0.0, vol_f.abs()).max()
+    return torch.where(vol_f >= _BIG_CUTOFF, 0.0, vol_f.abs()).max()
+
+
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The quantization scale 126 / amax."""
     # a true division: torch evaluates ``126.0 / tensor`` as a reciprocal
     # times 126, which rounds differently
-    scale = torch.full_like(amax, 126.0) / torch.clamp(amax, min=1e-30)
+    return torch.full_like(amax, 126.0) / torch.clamp(amax, min=1e-30)
+
+
+def quantize_int8(volume: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The int8 codes of ``volume`` at ``scale``; BIG lanes become 127."""
+    vol_f = volume.float()
     q = torch.clamp(torch.round(vol_f * scale), -126.0, 126.0)
-    q = torch.where(big, 127.0, q).to(torch.int8)
-    return q, scale
+    return torch.where(vol_f >= _BIG_CUTOFF, 127.0, q).to(torch.int8)
 
 
 def _dequantize_int8(q: torch.Tensor, scale, out_dtype) -> torch.Tensor:

@@ -32,6 +32,13 @@ layout, and the sweep reads one byte per element instead of deriving the
 scale from the two gradient planes. The predicate is the same, so the swept
 volume is the same bit for bit. A code volume is as large as an int8 cost
 volume; it is built and freed per direction.
+
+A vertical sweep may run on a column shard of the volume (the sharded
+matcher, ``parallel/sgm.py``): ``col0`` names the image column of the
+volume's first column, and the images stay whole, so D1 is cut from the
+sweep image's planes and every D2 probe reads the other image at its global
+column with the global width's out-of-range test. ``col0 = 0`` with a volume
+as wide as the images is the whole-image sweep, bit for bit.
 """
 
 from __future__ import annotations
@@ -74,17 +81,33 @@ def _penalty_bits(left_image: torch.Tensor, right_image: torch.Tensor,
     return small(self_image), small(other_image)
 
 
-def _probe(width: int, d_pad: int, choice: str, rw: int, device):
-    """(W, D) probe columns w -+ d, clamped, and their out-of-range mask."""
-    cols = torch.arange(width, device=device)[:, None]
+def _probe(width: int, d_pad: int, choice: str, rw: int, device,
+           col0: int = 0, image_width: int | None = None):
+    """(W, D) probe columns w -+ d, clamped, and their out-of-range mask,
+    for the volume columns ``col0 .. col0 + W - 1`` of an image
+    ``image_width`` (default W) wide; both in image columns."""
+    image_width = width if image_width is None else image_width
+    cols = torch.arange(col0, col0 + width, device=device)[:, None]
     disps = torch.arange(d_pad, device=device)[None, :]
     if choice == "L":
         probe = cols - disps
         oor = probe < max(0, rw)
     else:
         probe = cols + disps
-        oor = probe >= width + min(0, rw)
-    return probe.clamp(0, width - 1), oor
+        oor = probe >= image_width + min(0, rw)
+    return probe.clamp(0, image_width - 1), oor
+
+
+def _columns(left_image: torch.Tensor, direction: Tuple[int, int],
+             col0: int, width: int) -> None:
+    """Check that a volume of ``width`` columns from ``col0`` on lies in
+    the images, and that only a vertical sweep runs on a column shard."""
+    image_width = left_image.shape[1]
+    if col0 < 0 or col0 + width > image_width:
+        raise ValueError(f"volume columns [{col0}, {col0 + width}) outside "
+                         f"an image {image_width} wide")
+    if direction[0] == 0 and (col0, width) != (0, image_width):
+        raise ValueError("a horizontal sweep runs on whole rows only")
 
 
 def _b2_line(small_other: torch.Tensor, index: torch.Tensor,
@@ -101,18 +124,24 @@ def _b2_line(small_other: torch.Tensor, index: torch.Tensor,
 
 def penalty_scale_u8(left_image: torch.Tensor, right_image: torch.Tensor,
                      choice: str, direction: Tuple[int, int], d_pad: int,
-                     sgm_d: float) -> torch.Tensor:
+                     sgm_d: float, col0: int = 0,
+                     width: int | None = None) -> torch.Tensor:
     """(S, P, D) uint8 penalty codes of one sweep direction: 0 where both
     gradient tests are small, 2 where neither is, 1 otherwise; the
     predicate of ``sweep_plain`` and of K3 (an out-of-range D2 probe counts
     as small). Vertical sweeps give (H, W, D), horizontal ones (W, H, D),
-    the sweep axis leading.
+    the sweep axis leading. ``col0`` and ``width`` (default: the images')
+    select the volume's columns of a column shard.
     """
     rh, rw = direction
-    width = left_image.shape[1]
+    image_width = left_image.shape[1]
+    width = image_width if width is None else width
+    _columns(left_image, direction, col0, width)
     small_d1, small_other = _penalty_bits(left_image, right_image, choice,
                                           direction, sgm_d)
-    index, oor = _probe(width, d_pad, choice, rw, left_image.device)
+    small_d1 = small_d1[:, col0:col0 + width]
+    index, oor = _probe(width, d_pad, choice, rw, left_image.device, col0,
+                        image_width)
     b2 = oor | small_other[:, index]  # (H, W, D)
     codes = (~small_d1)[:, :, None].to(torch.uint8) + (~b2).to(torch.uint8)
     if rh == 0:
@@ -132,20 +161,23 @@ def sweep_plain(vol_in: torch.Tensor, vol_out: torch.Tensor,
                 left_image: torch.Tensor, right_image: torch.Tensor,
                 choice: str, direction: Tuple[int, int],
                 config: MatchConfig,
-                codes: torch.Tensor | None = None) -> None:
+                codes: torch.Tensor | None = None, col0: int = 0) -> None:
     """One DP sweep of vol_in into vol_out (may alias vol_in), line by line.
 
     With ``codes`` (``penalty_scale_u8`` of this direction) the scale of a
-    line is decoded from its codes instead of the gradient planes."""
+    line is decoded from its codes instead of the gradient planes. A
+    vertical sweep's volume may be the column shard from ``col0`` on."""
     vertical, forward, p1_base, p2_base = _sweep_params(direction, config)
     inv_q1 = 1.0 / config.sgm_q1
     inv_q2 = 1.0 / config.sgm_q2
     height, width, d_pad = vol_in.shape
+    _columns(left_image, direction, col0, width)
     if codes is None:
         small_d1, small_other = _penalty_bits(left_image, right_image,
                                               choice, direction, config.sgm_d)
+        small_d1 = small_d1[:, col0:col0 + width]
         index, oor = _probe(width, d_pad, choice, direction[1],
-                            vol_in.device)
+                            vol_in.device, col0, left_image.shape[1])
     # lines are rows (vertical) or columns (horizontal): views, no copies
     src = vol_in if vertical else vol_in.transpose(0, 1)
     dst = vol_out if vertical else vol_out.transpose(0, 1)
@@ -186,29 +218,38 @@ def _round16(n: int) -> int:
 
 def kernel_planes(left_image: torch.Tensor, right_image: torch.Tensor,
                   choice: str, direction: Tuple[int, int], d_pad: int,
-                  sgm_d: float):
-    """K3's two uint8 penalty planes, rows padded to multiples of 16 bytes:
+                  sgm_d: float, col0: int = 0, width: int | None = None):
+    """K3's two uint8 penalty planes, rows padded to multiples of 16 bytes,
+    for a volume of ``width`` columns (default: the images') from image
+    column ``col0`` on:
 
-    * D1, (H, pitch1): the sweep image's small-gradient bits in columns
-      [0, W);
+    * D1, (H, pitch1): the sweep image's small-gradient bits of the
+      volume's columns [0, W);
     * D2, (H, pitch2): the other image's bits at column c + d_pad for probe
-      column c, 1 ("small") wherever the probe is out of range (``_probe``),
-      so columns -d_pad .. W + d_pad - 1 all read a defined bit.
+      column c (volume column c, image column col0 + c), 1 ("small")
+      wherever the probe is out of the image's range (``_probe``), so
+      columns -d_pad .. W + d_pad - 1 all read a defined bit.
 
     The kernel then needs no bounds test on a probe, and its 16-byte copies
     of a probe run stay inside the plane."""
     small_d1, small_other = _penalty_bits(left_image, right_image, choice,
                                           direction, sgm_d)
-    height, width = small_d1.shape
+    height, image_width = small_d1.shape
+    width = image_width if width is None else width
+    _columns(left_image, direction, col0, width)
     device = small_d1.device
     d1 = torch.zeros((height, _round16(width)), dtype=torch.uint8,
                      device=device)
-    d1[:, :width] = small_d1
+    d1[:, :width] = small_d1[:, col0:col0 + width]
     d2 = torch.ones((height, _round16(width + 2 * d_pad)), dtype=torch.uint8,
                     device=device)
     rw = direction[1]
-    lo, hi = (max(0, rw), width) if choice == "L" else (0, width + min(0, rw))
-    d2[:, d_pad + lo:d_pad + hi] = small_other[:, lo:hi]
+    lo, hi = ((max(0, rw), image_width) if choice == "L"
+              else (0, image_width + min(0, rw)))
+    # the in-range image columns this shard's probes reach
+    lo, hi = max(lo, col0 - d_pad), min(hi, col0 + width + d_pad)
+    if lo < hi:
+        d2[:, d_pad + lo - col0:d_pad + hi - col0] = small_other[:, lo:hi]
     return d1, d2
 
 
@@ -216,10 +257,11 @@ def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
                left_image: torch.Tensor, right_image: torch.Tensor,
                choice: str, direction: Tuple[int, int],
                config: MatchConfig,
-               codes: torch.Tensor | None = None) -> None:
+               codes: torch.Tensor | None = None, col0: int = 0) -> None:
     """Launch K3 for one sweep of vol_in into vol_out (may alias vol_in);
     with ``codes`` the kernel reads the penalty codes, else it derives the
-    penalties from the images' gradient planes (``kernel_planes``)."""
+    penalties from the images' gradient planes (``kernel_planes``). A
+    vertical sweep's volume may be the column shard from ``col0`` on."""
     require_cuda("volume", vol_in, (torch.float32, torch.bfloat16))
     require_cuda("output volume", vol_out, (vol_in.dtype,))
     height, width, d_pad = vol_in.shape
@@ -227,12 +269,13 @@ def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
         raise ValueError(
             f"sgm sweep takes D_pad in 128..512 and matching volumes; got "
             f"{tuple(vol_in.shape)} -> {tuple(vol_out.shape)}")
-    if left_image.shape != (height, width):
-        raise ValueError("images and volume disagree in (H, W)")
+    if left_image.shape[0] != height:
+        raise ValueError("images and volume disagree in H")
+    _columns(left_image, direction, col0, width)
     vertical, forward, p1_base, p2_base = _sweep_params(direction, config)
     if codes is None:
         d1, d2 = kernel_planes(left_image, right_image, choice, direction,
-                               d_pad, config.sgm_d)
+                               d_pad, config.sgm_d, col0, width)
         planes = (d1.data_ptr(), d2.data_ptr(), None)
         pitches = (d1.shape[1], d2.shape[1])
     else:
@@ -255,17 +298,19 @@ def sweep_cuda(vol_in: torch.Tensor, vol_out: torch.Tensor,
 
 
 def sweep(vol_in, vol_out, left_image, right_image, choice, direction,
-          config: MatchConfig) -> None:
+          config: MatchConfig, col0: int = 0) -> None:
     """K3 wrapper: kernel on CUDA, ``sweep_plain`` on the CPU. With
     ``config.sgm_u8`` the direction's code volume is built first and freed
-    on return."""
+    on return. A vertical sweep's volume may be the column shard from
+    image column ``col0`` on (the images stay whole)."""
     codes = None
     if config.sgm_u8:
         codes = penalty_scale_u8(left_image, right_image, choice, direction,
-                                 vol_in.shape[2], config.sgm_d)
+                                 vol_in.shape[2], config.sgm_d, col0,
+                                 vol_in.shape[1])
     fn = sweep_plain if vol_in.device.type == "cpu" else sweep_cuda
     fn(vol_in, vol_out, left_image, right_image, choice, direction, config,
-       codes)
+       codes, col0)
 
 
 def _sgm_one_volume(volume: torch.Tensor, left_image: torch.Tensor,

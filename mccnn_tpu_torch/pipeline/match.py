@@ -122,12 +122,14 @@ def _run_cbca(aggregate, volume: torch.Tensor, arms, iterations: int,
     return volume
 
 
-def _post_stages(ndisp: int, config: MatchConfig):
+def _post_stages(ndisp: int, config: MatchConfig, rows=None):
     """The four post-WTA stages as (name, fn(state) -> state) steps.
 
     The state holds ``left`` (the image), ``left_disparity``,
     ``right_disparity`` and ``left_volume``; each step drops what no later
-    step reads and leaves its result under ``disparity``.
+    step reads and leaves its result under ``disparity``. With ``rows``
+    (see ``match_pair``) the left volume is a row shard: subpixel runs on
+    its rows of the map, and the map is gathered again.
     """
 
     def lr_interpolation(s):
@@ -136,8 +138,12 @@ def _post_stages(ndisp: int, config: MatchConfig):
         return s
 
     def subpixel(s):
-        s["disparity"] = subpixel_enhance(s["disparity"],
-                                          s.pop("left_volume"), ndisp)
+        if rows is None:
+            s["disparity"] = subpixel_enhance(s["disparity"],
+                                              s.pop("left_volume"), ndisp)
+        else:
+            s["disparity"] = rows.gather(subpixel_enhance(
+                rows.local(s["disparity"]), s.pop("left_volume"), ndisp))
         return s
 
     def median(s):
@@ -162,7 +168,8 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
                config: MatchConfig = MatchConfig(),
                volume_dtype: str = "float32", cbca_impl: str = "auto",
                return_volumes: bool = False, cbca_chunk_d: int = 0,
-               cost_volume_method: str = "auto"):
+               cost_volume_method: str = "auto", cost_volume_fn=None,
+               cbca_fn=None, sgm_fn=None, rows=None):
     """(H, W) standardized image pair -> (H, W) float32 disparity map.
 
     ``volume_dtype`` "bfloat16" stores the volumes in bf16 (the descriptors
@@ -184,6 +191,20 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
     with torch ops and process the left first. ``return_volumes=True``
     returns a dict with the disparity, the processed pre-WTA volumes and
     the per-side WTA maps.
+
+    The hooks are how ``parallel/match.py`` runs the stages on row shards
+    (the JAX package's ``cost_volume_fn`` and ``cbca_fn``, and what GSPMD
+    does there without a hook): ``cost_volume_fn(features_left,
+    features_right, sides)`` builds one volume from the whole descriptor
+    maps, and the volumes are then built one at a time, right first,
+    whatever the method; ``cbca_fn(volume, arms, iterations)`` aggregates
+    with the whole image's arms (``cbca_chunk_d`` and the joint regions
+    are not read); ``sgm_fn`` takes ``_sgm_one_volume``'s arguments; and
+    ``rows`` has ``gather(local)``, the whole map from every rank's rows,
+    and ``local(whole)``, this rank's rows: the WTA maps are gathered
+    before the LR check, which reads across rows, and subpixel runs on the
+    shard. With ``return_volumes`` the volumes are then this rank's rows
+    and the maps whole.
     """
     _check_options(config, volume_dtype, cbca_impl, cost_volume_method)
     disable_tf32()
@@ -191,6 +212,10 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
     distance = int(config.cbca_distance)
     aggregate = _cbca_aggregate(cbca_impl)
     band_kernels = cost_volume_method in ("auto", "pallas")
+    if sgm_fn is None:
+        sgm_fn = _sgm_one_volume
+    wta = wta_disparity if rows is None else (
+        lambda volume: rows.gather(wta_disparity(volume)))
 
     with torch.no_grad():
         features_left = extract_features(net, left_image)
@@ -203,7 +228,10 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
                     choice: str) -> torch.Tensor:
             """CBCA -> SGM -> CBCA for one volume."""
             arms = compute_arms(image, config.cbca_intensity, distance)
-            if config.cbca_joint_regions:
+            if cbca_fn is not None:
+                def run(volume, iterations):
+                    return cbca_fn(volume, arms, iterations)
+            elif config.cbca_joint_regions:
                 other = right_image if choice == "L" else left_image
                 arms_other = compute_arms(other, config.cbca_intensity,
                                           distance)
@@ -221,35 +249,39 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
                                      distance, cbca_chunk_d, **kwargs)
 
             volume = run(volume, config.cbca_num_iterations_1)
-            volume = _sgm_one_volume(volume, left_image, right_image, choice,
-                                     ndisp, config)
+            volume = sgm_fn(volume, left_image, right_image, choice, ndisp,
+                            config)
             return run(volume, config.cbca_num_iterations_2)
 
-        if band_kernels:
+        if band_kernels or cost_volume_fn is not None:
+            if cost_volume_fn is None:
+                def cost_volume_fn(fl, fr, sides):
+                    return cost_volume_pair(fl, fr, ndisp, sides=sides,
+                                            dtype=vdtype)
+
             right_volume = process(
-                cost_volume_pair(features_left, features_right, ndisp,
-                                 sides="right", dtype=vdtype), right_image,
-                "R")
-            right_disparity = wta_disparity(right_volume)
+                cost_volume_fn(features_left, features_right, "right"),
+                right_image, "R")
+            right_disparity = wta(right_volume)
             if not return_volumes:
                 del right_volume  # free it before the left volume is built
             left_volume = process(
-                cost_volume_pair(features_left, features_right, ndisp,
-                                 sides="left", dtype=vdtype), left_image, "L")
-            left_disparity = wta_disparity(left_volume)
+                cost_volume_fn(features_left, features_right, "left"),
+                left_image, "L")
+            left_disparity = wta(left_volume)
         else:
             left_volume, right_volume = cost_volume_pair(
                 features_left, features_right, ndisp, dtype=vdtype,
                 method=cost_volume_method)
             left_volume = process(left_volume, left_image, "L")
             right_volume = process(right_volume, right_image, "R")
-            left_disparity = wta_disparity(left_volume)
-            right_disparity = wta_disparity(right_volume)
+            left_disparity = wta(left_volume)
+            right_disparity = wta(right_volume)
 
         state = {"left": left_image, "left_volume": left_volume,
                  "left_disparity": left_disparity,
                  "right_disparity": right_disparity}
-        for _, stage in _post_stages(ndisp, config):
+        for _, stage in _post_stages(ndisp, config, rows):
             state = stage(state)
         disparity = state["disparity"]
     if return_volumes:

@@ -147,17 +147,65 @@ def test_port_adds_only_the_device_flag():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--multihost"],
     ["--cbca_impl", "pallas", "--volume_dtype", "bfloat16"],
     ["--cbca_impl", "mxu", "--volume_dtype", "bfloat16"],
 ], ids=lambda extra: "-".join(extra).replace("--", ""))
 def test_unported_options_exit_with_value_error(scenes, extra):
-    """What still raises: ``--multihost``, and the two f32-only CBCA
-    backends on bf16 volumes (TF1 checkpoints: ``test_torch_net.py``)."""
+    """What still raises: the two f32-only CBCA backends on bf16 volumes
+    (TF1 checkpoints: ``test_torch_net.py``)."""
     with pytest.raises(ValueError):
         port_cli.main(_argv(scenes, scenes / "refused",
                             extra=["--device", "cpu", *extra]))
     assert not (scenes / "refused").exists()
+
+
+def test_multihost_writes_each_scene_once(scenes, tmp_path):
+    """Two ``--multihost`` processes over the two scenes, started with
+    ``RANK`` 0 and 1 of ``WORLD_SIZE`` 2 and no process group: rank 0
+    writes scene A, rank 1 scene B, and together they write what one
+    process writes."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    argv = _argv(scenes, tmp_path / "multi", extra=["--device", "cpu",
+                                                    "--multihost"])
+    ranks = [subprocess.Popen(
+        [sys.executable, "-m", "mccnn_tpu_torch.cli.match", *argv],
+        cwd=Path(__file__).resolve().parents[1],
+        env={**os.environ, "RANK": str(rank), "WORLD_SIZE": "2",
+             "OMP_NUM_THREADS": "1"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    try:
+        outputs = [process.communicate(timeout=120)[0] for process in ranks]
+    finally:
+        for process in ranks:
+            process.kill()
+    assert [process.returncode for process in ranks] == [0, 0], outputs
+    assert _files(tmp_path / "multi") == [
+        f"submit_t0{kind}/scene{s}/{name}"
+        for kind, names in (("", ("disp0MCCNN.pfm", "timeMCCNN.txt")),
+                            ("_imgs", ("disp0MCCNN.pgm",)))
+        for s in "AB" for name in names]
+    # each file written once: the same disparity as the one-process run
+    port_cli.main(_argv(scenes, tmp_path / "one", extra=["--device", "cpu"]))
+    for s in "AB":
+        rel = f"submit_t0/scene{s}/disp0MCCNN.pfm"
+        np.testing.assert_array_equal(read_pfm(str(tmp_path / "multi" / rel)),
+                                      read_pfm(str(tmp_path / "one" / rel)))
+
+
+def test_multihost_rank_keeps_its_scenes(scenes, tmp_path, monkeypatch):
+    """In one process, ``RANK=1 WORLD_SIZE=2`` keeps scene B only."""
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    port_cli.main(_argv(scenes, tmp_path / "rank1",
+                        extra=["--device", "cpu", "--multihost"]))
+    assert _files(tmp_path / "rank1") == [
+        "submit_t0/sceneB/disp0MCCNN.pfm", "submit_t0/sceneB/timeMCCNN.txt",
+        "submit_t0_imgs/sceneB/disp0MCCNN.pgm"]
 
 
 @pytest.mark.parametrize("extra", [

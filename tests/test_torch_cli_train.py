@@ -100,8 +100,85 @@ def test_cli_resumes_either_package(trained, source):
 
 
 def test_cli_refusals(trained):
-    with pytest.raises(ValueError, match="parallel/"):
-        tcli.main(_argv(trained, "dp", "--device", "cpu", "--data_parallel"))
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            tcli.main(_argv(trained, "card", "--end_epoch", "1"))
+        for extra in ((), ("--data_parallel",)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                tcli.main(_argv(trained, "card", "--end_epoch", "1", *extra))
+
+
+def _assert_checkpoints_match(root, tag, epochs=(1, 2)):
+    """``tag``'s checkpoints against the plain port run's, within the
+    step tolerance (the DP step sums its gradients in another order)."""
+    for epoch in epochs:
+        name = f"model_epoch{epoch}.npz"
+        with np.load(root / "port" / "ckpt" / name) as want, \
+                np.load(root / tag / "ckpt" / name) as got:
+            assert sorted(got.files) == sorted(want.files)
+            for key in want.files:
+                np.testing.assert_allclose(got[key], want[key], rtol=RTOL,
+                                           atol=ATOL, err_msg=key)
+
+
+def test_cli_data_parallel_one_rank(trained):
+    """``--data_parallel --device cpu``: one gloo rank in this process,
+    the plain run's checkpoints and losses."""
+    tcli.main(_argv(trained, "dp", "--end_epoch", "2", "--device", "cpu",
+                    "--data_parallel", "--resume",
+                    str(trained / "weights.npz")))
+    _assert_checkpoints_match(trained, "dp")
+    start = [r for r in _events(trained, "dp") if r["event"] == "start"]
+    assert start[0]["devices"] == 1
+    want, got = ([r["hinge_loss"] for r in _events(trained, tag)
+                  if r["event"] == "train"] for tag in ("port", "dp"))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_cli_data_parallel_two_ranks_as_torchrun(trained):
+    """Two processes with torchrun's variables (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``) join one gloo group: each takes half
+    of every batch, rank 0 alone writes the checkpoints and the metrics,
+    and they match the plain run's: every loss, and the first epoch's
+    checkpoint. (In the second epoch a conv1-2 pre-activation within
+    rounding of 0 takes the other side of its ReLU when the half batches'
+    convolutions round differently, which moves those two layers' traces
+    by about 1e-4 while the losses stay within 1e-7.)"""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from mccnn_tpu_torch.parallel.launch import free_port
+
+    # tensorflow (the metrics logger's TensorBoard copy) stays unimported
+    code = ("import sys; sys.modules['tensorflow'] = None; "
+            "from mccnn_tpu_torch.cli.train import main; main(sys.argv[1:])")
+    argv = _argv(trained, "dp2", "--end_epoch", "2", "--device", "cpu",
+                 "--data_parallel", "--resume", str(trained / "weights.npz"))
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port()), "WORLD_SIZE": "2",
+           "OMP_NUM_THREADS": "1"}
+    ranks = [subprocess.Popen([sys.executable, "-c", code, *argv],
+                              cwd=Path(__file__).resolve().parents[1],
+                              env={**env, "RANK": str(rank),
+                                   "LOCAL_RANK": str(rank)},
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    try:
+        outputs = [process.communicate(timeout=120)[0] for process in ranks]
+    finally:
+        for process in ranks:
+            process.kill()
+    assert [process.returncode for process in ranks] == [0, 0], outputs
+    assert sorted(p.name for p in (trained / "dp2" / "ckpt").iterdir()) == [
+        "model_epoch1.npz", "model_epoch2.npz"]
+    _assert_checkpoints_match(trained, "dp2", epochs=(1,))
+    records = _events(trained, "dp2")
+    assert [r["devices"] for r in records if r["event"] == "start"] == [2]
+    assert [r["epoch"] for r in records if r["event"] == "train"] == [
+        1, 1, 2, 2]
+    for event, key in (("train", "hinge_loss"), ("val", "val_hinge_loss")):
+        want, got = ([r[key] for r in _events(trained, tag)
+                      if r["event"] == event] for tag in ("port", "dp2"))
+        assert len(got) == len(want) > 0
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

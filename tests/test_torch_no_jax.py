@@ -33,7 +33,11 @@ def test_port_modules_import_without_jax():
                 "pipeline.train", "utils.checkpoint", "data.sampler",
                 "data.prefetch", "native", "cli.train",
                 "tools.eval_fullscale", "tools.train_fullscale",
-                "tools.parity_eval"):
+                "tools.parity_eval", "parallel", "parallel.multihost",
+                "parallel.mesh", "parallel.cbca", "parallel.pallas_shard",
+                "parallel.sgm", "parallel.match", "parallel.train",
+                "parallel.launch", "tools.multiprocess_bringup",
+                "tools.multichip_midscale"):
         assert f"mccnn_tpu_torch.{new}" in modules
     assert "mccnn_tpu_torch.shared" not in modules
     code = (

@@ -22,7 +22,8 @@ PAIRS = {
            importlib.import_module(f"mccnn_tpu_torch.{name}"))
     for name in ("utils.config", "utils.scenes", "utils.evaluate",
                  "utils.metrics", "io.pfm", "io.calib", "io.middlebury",
-                 "data.dataset", "data.sampler", "data.prefetch")
+                 "data.dataset", "data.sampler", "data.prefetch",
+                 "parallel.multihost")
 }
 
 
@@ -228,3 +229,16 @@ def test_prefetcher_stream_equal(tmp_path, rng):
     with ours_prefetch.BatchPrefetcher(ours, 8, epoch_len=3) as feed:
         got = _batches(feed)
     _assert_streams_equal(got, want)
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4, 7])
+def test_process_slice_and_shard_scenes_equal(count):
+    """The strided assignment, for every rank of ``count`` processes."""
+    theirs, ours = PAIRS["parallel.multihost"]
+    scenes = [f"s{i}" for i in range(11)]
+    for num in (0, 1, 5, 11):
+        for rank in range(count):
+            assert ours.process_slice(num, rank, count) == \
+                theirs.process_slice(num, rank, count)
+            assert ours.shard_scenes(scenes[:num], rank, count) == \
+                theirs.shard_scenes(scenes[:num], rank, count)
