@@ -86,7 +86,9 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      (``tools/multichip_midscale.py``, one spawn) at 1000 x 1504, ndisp
      200, on the serving (bf16, fused: K1 2, K2 36, K3 8 a rank), exact
      (f32, pallas: K7 36) and fused8 (K4 36) schedules and at 256 x 384 on
-     fused2 (3 + 5 rounds: K9 6, K2 4) and rolling (K8 36), each rank's
+     fused2 (3 + 5 rounds: K9 6, K2 4), rolling (K8 36) and the joint-region
+     CBCA (f32, "xla", 1 + 2 rounds: torch ops per halo-extended block, K1
+     2 and K3 8 only), each rank's
      pre-WTA volume rows against the unsharded ``match_pair`` on the card
      (f32 atol 1e-4 / rtol 1e-6, bf16 one ulp at the cost scale, fused8 bit
      for bit), the WTA maps' differing pixels, the bad-2.0 delta (<= 0.005),
@@ -95,11 +97,20 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      the DP step on two ranks (batch 128) against one process (replicas
      bit-identical); ``cli.train --data_parallel`` on NCCL with one rank
      against the plain CLI (phase 8's rule); ``cli.match --multihost`` in
-     two processes over three scenes, each written once by its owner.
+     two processes over three scenes, each written once by its owner;
+ 11. drives the bench entry points in this process: ``mccnn_tpu_torch.bench``
+     (half, halfexact, quarter, full: the launches of one pair exact --
+     K1 2, K2 36, K3 8; full K2 72 on 256-lane chunks of D_pad 512 -- the
+     parity check's limits, finite disparities; train), ``tools.bench_serve``
+     on six 1000 x 1504 scenes for the pipelined and the sync client,
+     ``tools.profile_pipeline`` at the main shape, ``tools.profile_fullres``
+     at 2000 x 3072, ndisp 400, and ``tools.warmup`` in a process of its own;
+     each prints one JSON record naming this card.
 
 Every failed phase raises, so the exit code is non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
-The last lines are the serving pair's seconds and peak device memory, the
+The last lines are the bench's records (one JSON line each), the
+serving pair's seconds and peak device memory, the
 training summary (both steps/s), the quality summary, the sharded summary,
 the card, the per-kernel JSON summary and ``{"ok": true, "device":
 {...}}``.
@@ -196,6 +207,14 @@ PER_PAIR = {
                                   "cbca_round": 4, "sgm_sweep": 8},
     "sharded rolling (per rank)": {"band_side": 2, "cbca_rolling_round": 36,
                                    "sgm_sweep": 8},
+    # the joint-region CBCA is torch ops on each rank's halo-extended block
+    "sharded joint (per rank)": {"band_side": 2, "sgm_sweep": 8},
+    # phase 11: one pair of each bench config (mccnn_tpu_torch/bench.py);
+    # full aggregates D_pad 512 in two 256-lane chunks
+    "bench half": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
+    "bench halfexact": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
+    "bench quarter": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
+    "bench full": {"band_side": 2, "cbca_round": 72, "sgm_sweep": 8},
 }
 # the path whose launch count stands in the summary line for each kernel
 OWN_PATH = {
@@ -244,6 +263,9 @@ QUALITY_BUDGET = 0.005  # bad-2.0: fast vs exact, trained vs random init
 SHARDED_RANKS = 2
 SHARDED_ODD_ROUNDS = (3, 5)
 MULTIHOST_SCENES = 3
+# the bench phase: its configs in-process, the serve bench's scenes a client
+BENCH_CONFIGS = ("half", "halfexact", "quarter", "full", "train")
+BENCH_SERVE_SCENES = 6
 # the card's published peaks (H100 SXM data sheet, dense): device memory
 # rate; f32 outside the tensor cores, bf16 and int8 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -2109,6 +2131,12 @@ def drive_sharded(device, smi: str):
         ("sharded rolling (per rank)", midscale.job(
             *MIDDLE_SHAPE, 64, volume_dtype="bfloat16", cbca_impl="rolling",
             seed=SEED)),
+        # no CBCA hook with "xla": each rank runs cbca_joint on its block
+        ("sharded joint (per rank)", midscale.job(
+            *MIDDLE_SHAPE, 64, MatchConfig(cbca_joint_regions=True,
+                                           cbca_num_iterations_1=1,
+                                           cbca_num_iterations_2=2),
+            volume_dtype="float32", cbca_impl="xla", seed=SEED)),
     ]
     t0 = time.perf_counter()
     torch.cuda.empty_cache()  # the earlier phases' cached blocks
@@ -2303,6 +2331,118 @@ def drive_sharded(device, smi: str):
     return counts, summary
 
 
+def drive_bench(device, smi: str):
+    """Phase 11: the port's bench entry points in this process, as a user
+    runs them: ``bench``'s half, halfexact, quarter, full and train configs
+    (each config's launches in one pair against ``PER_PAIR``, K1, K2 and
+    K8 against their plain versions within the JAX bench's limits, finite
+    disparities), ``tools.bench_serve`` with ``BENCH_SERVE_SCENES`` scenes
+    at the main shape for the pipelined and the sync client (every scene
+    answered and written), ``tools.profile_pipeline`` at the main shape,
+    ``tools.profile_fullres`` at 2000 x 3072, ndisp 400, and
+    ``tools.warmup`` in a process of its own on the serve bench's scene
+    list. Every record must name this card. Returns ({path: launches},
+    [records])."""
+    import torch
+    from mccnn_tpu_torch import bench
+    from mccnn_tpu_torch.tools import (
+        bench_serve,
+        profile_fullres,
+        profile_pipeline,
+    )
+
+    counts, records = {}, []
+
+    def quiet(fn, *args, **kwargs):
+        """Run an entry point with its JSON line kept for the summary."""
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            record = fn(*args, **kwargs)
+        lines = [line for line in out.getvalue().splitlines()
+                 if line.startswith("{")]
+        if len(lines) != 1 or json.loads(lines[0]) != json.loads(
+                json.dumps(record)):
+            raise AssertionError(f"{fn.__module__}: {len(lines)} JSON lines")
+        if record["device"] != smi:
+            raise AssertionError(f"record of {record['device']!r}")
+        records.append(record)
+        return record, time.perf_counter() - t0
+
+    for config in BENCH_CONFIGS:
+        torch.cuda.empty_cache()
+        record, seconds = quiet(bench.CONFIGS[config], device=str(device))
+        if config == "train":
+            log(f"  train: {record['value']:.1f} steps/s at batch 128, loss "
+                f"{record['first_loss']:.4f} -> {record['last_loss']:.4f}, "
+                f"peak {record['peak_device_gb']} GB ({seconds:.1f} s)")
+            continue
+        path = f"bench {config}"
+        counts[path] = {name: record["launches"].get(name, 0)
+                        for name in KERNELS}
+        check_counts(path, counts[path])
+        if not record["finite"]:
+            raise AssertionError(f"{path}: non-finite disparity")
+        log(f"  {config}: {record['seconds_per_pair']:.4f} s/pair (means "
+            f"{', '.join(f'{s:.4f}' for s in record['samples_s'])}), "
+            f"{record['value']:.2f} MP/s, peak "
+            f"{record['peak_device_gb']} GB, launches "
+            f"{record['launches']}, first call {record['first_call_s']:.1f}"
+            f" s; parity {record.get('parity')}; isolated stages (ms) "
+            f"{record.get('stages_ms_isolated')} ({seconds:.1f} s)")
+    if set(records[0]["parity"]) != {"band_left", "band_right",
+                                     "cbca_fused", "cbca_rolling"}:
+        raise AssertionError(f"parity check: {records[0]['parity']}")
+
+    root = os.path.join(ROOT, "build", "bench_serve")
+    for client in ("pipelined", "sync"):
+        torch.cuda.empty_cache()
+        record, seconds = quiet(bench_serve.run, [
+            "--scenes", str(BENCH_SERVE_SCENES), "--client", client,
+            "--root", root, "--device", str(device)])
+        if (record["answered_ok"] != BENCH_SERVE_SCENES
+                or record["missing_artifacts"] or record["value"] is None):
+            raise AssertionError(f"serve bench, {client}: {record}")
+        log(f"  serve ({client}): {record['value']:.3f} pairs/s steady, "
+            f"latencies {record['latencies_s']} s ({seconds:.1f} s)")
+
+    for tool, argv in ((profile_pipeline, [str(n) for n in (*MAIN_SHAPE,
+                                                            MAIN_NDISP)]),
+                       (profile_fullres, [])):
+        torch.cuda.empty_cache()
+        record, seconds = quiet(tool.main, argv)
+        if not all(np.isfinite(v) and v > 0
+                   for v in record["stages_ms"].values()):
+            raise AssertionError(f"{record['tool']}: {record['stages_ms']}")
+        log(f"  {record['tool']} {record['shape']}: {record['stages_ms']}"
+            f" ({seconds:.1f} s)")
+
+    # warm-up as a serving process pays it: a process of its own
+    scene_list = os.path.join(root, "list.txt")
+    with open(scene_list, "w") as f:
+        for i in range(BENCH_SERVE_SCENES):
+            f.write(os.path.join(root, "data", f"s{i:02d}", "im0.png") + "\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mccnn_tpu_torch.tools.warmup", "--list_file",
+         scene_list, "--volume_dtype", "bfloat16", "--device", str(device)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    if proc.returncode or len(lines) != 1:
+        raise AssertionError(f"warmup failed: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    record = json.loads(lines[0])
+    bucketed = [-(-n // 64) * 64 for n in MAIN_SHAPE]
+    if (record["device"] != smi or record["scenes"] != BENCH_SERVE_SCENES
+            or [b["bucket"] for b in record["buckets"]]
+            != [[*bucketed, MAIN_NDISP]]):
+        raise AssertionError(f"warmup: {record}")
+    records.append(record)
+    log(f"  warmup (own process, {seconds:.1f} s): {record}")
+    return counts, records
+
+
 def leaf_errors(got: dict, want: dict) -> dict:
     """Largest |got - want| / max |want| over the leaves of the ``params``
     and ``momentum`` trees; raises past ``TRAIN_REL_TOL``."""
@@ -2410,6 +2550,13 @@ def main() -> int:
     sharded_counts, sharded = drive_sharded(device, smi)
     launches.update(sharded_counts)
 
+    phase("bench: mccnn_tpu_torch.bench half, halfexact, quarter, full and "
+          f"train; tools.bench_serve ({BENCH_SERVE_SCENES} scenes, pipelined "
+          "and sync); tools.profile_pipeline; tools.profile_fullres; "
+          "tools.warmup")
+    bench_counts, bench_records = drive_bench(device, smi)
+    launches.update(bench_counts)
+
     summary = {"kernels": [
         {
             "name": name,
@@ -2429,6 +2576,8 @@ def main() -> int:
         for name, (source, replaces) in KERNELS.items()
     ]}
     phase("done")
+    for record in bench_records:
+        log(json.dumps(record))
     log(f"serving pair {MAIN_SHAPE[0]} x {MAIN_SHAPE[1]}, ndisp {MAIN_NDISP}, "
         f"bf16: {serving['s_per_pair']:.4f} s/pair, peak device memory "
         f"{serving['peak_gb']:.2f} GB")

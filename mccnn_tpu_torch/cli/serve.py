@@ -116,6 +116,37 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def bucket_of(pipeline, height: int, width: int, ndisp: int) -> tuple:
+    """The shape a scene runs at: H and W padded to the pipeline's
+    bucket, and its ndisp."""
+    return (pipeline._bucketed(height), pipeline._bucketed(width), ndisp)
+
+
+def warmup_buckets(pipeline, warmup_list=None, warmup_shapes=None) -> dict:
+    """{bucket: a raw (H, W, ndisp) in it} of the scenes a left-image list
+    names (each scene's calib.txt beside its image) and of the ``HxWxNDISP``
+    triples of a comma-separated string."""
+    from mccnn_tpu_torch.io.calib import parse_calib
+
+    shapes = {}
+    if warmup_list:
+        with open(warmup_list) as f:
+            for line in f:
+                left_path = line.strip()
+                if not left_path:
+                    continue
+                calib = os.path.join(os.path.dirname(left_path), "calib.txt")
+                height, width, ndisp = parse_calib(calib)
+                shapes[bucket_of(pipeline, height, width, ndisp)] = (
+                    height, width, ndisp)
+    if warmup_shapes:
+        for triple in warmup_shapes.split(","):
+            height, width, ndisp = (int(v) for v in triple.lower().split("x"))
+            shapes[bucket_of(pipeline, height, width, ndisp)] = (
+                height, width, ndisp)
+    return shapes
+
+
 def main(argv=None, stdin=None, stdout=None) -> None:
     args = build_parser().parse_args(argv)
     stdin = stdin if stdin is not None else sys.stdin
@@ -140,26 +171,9 @@ def main(argv=None, stdin=None, stdout=None) -> None:
         device=args.device,
     )
 
-    def bucket_of(height: int, width: int, ndisp: int):
-        return (pipeline._bucketed(height), pipeline._bucketed(width), ndisp)
-
     # ---- warm-up: run every announced shape bucket once (kernel build,
     # cuDNN algorithm choice, allocator pools) ----
-    shapes = {}
-    if args.warmup_list:
-        with open(args.warmup_list) as f:
-            for line in f:
-                left_path = line.strip()
-                if not left_path:
-                    continue
-                calib = os.path.join(os.path.dirname(left_path), "calib.txt")
-                height, width, ndisp = parse_calib(calib)
-                shapes[bucket_of(height, width, ndisp)] = (height, width, ndisp)
-    if args.warmup_shapes:
-        for triple in args.warmup_shapes.split(","):
-            height, width, ndisp = (int(v) for v in triple.lower().split("x"))
-            shapes[bucket_of(height, width, ndisp)] = (height, width, ndisp)
-
+    shapes = warmup_buckets(pipeline, args.warmup_list, args.warmup_shapes)
     warmed = set()
     for bucketed, (height, width, ndisp) in sorted(shapes.items()):
         zeros = np.zeros((height, width), dtype=np.float32)
@@ -221,14 +235,14 @@ def main(argv=None, stdin=None, stdout=None) -> None:
             scene_dir, out_dir = line.split()
             height, width, ndisp = parse_calib(
                 os.path.join(scene_dir, "calib.txt"))
-            warm = bucket_of(height, width, ndisp) in warmed
+            warm = bucket_of(pipeline, height, width, ndisp) in warmed
             left = standardize_image(
                 load_grayscale(os.path.join(scene_dir, "im0.png")))
             right = standardize_image(
                 load_grayscale(os.path.join(scene_dir, "im1.png")))
             t0 = time.time()
             handle = pipeline.dispatch(left, right, ndisp)
-            warmed.add(bucket_of(height, width, ndisp))
+            warmed.add(bucket_of(pipeline, height, width, ndisp))
             nxt = (scene_dir, out_dir, t0, warm, height, width, handle)
         except Exception as exc:  # noqa: BLE001 — a bad scene must not kill
             # the server; finalize the pending scene first (request order)

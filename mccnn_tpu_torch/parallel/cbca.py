@@ -11,7 +11,9 @@ and never exchanged; rows beyond the image are zero arms, which aggregate
 nothing, as the JAX package's zero-filled halos do.
 
 This is the template of ``parallel/pallas_shard.py``, which runs the CUDA
-round kernels per shard the same way.
+round kernels per shard the same way, and of ``cbca_joint_sharded``, the
+joint-region CBCA (``ops/cbca_joint.py``) per shard, which GSPMD
+partitions in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from mccnn_tpu_torch.ops.cbca import CrossArms, _arm_stencil_sum
+from mccnn_tpu_torch.ops.cbca_joint import cbca_joint
 from mccnn_tpu_torch.parallel.mesh import Mesh, exchange_halo, shard_rows
 
 
@@ -74,4 +77,31 @@ def cbca_sharded(volume: torch.Tensor, arms: CrossArms, num_iterations: int,
         out = _arm_stencil_sum(mid, arms_h.up, arms_h.down, 0,
                                distance_threshold).narrow(0, radius, rows)
         volume = out * inv_region
+    return volume
+
+
+def cbca_joint_sharded(volume: torch.Tensor, arms_self: CrossArms,
+                       arms_other: CrossArms, num_iterations: int,
+                       distance_threshold: int, ndisp: int, choice: str,
+                       mesh: Mesh) -> torch.Tensor:
+    """Aggregate this rank's row shard ``volume`` over joint regions;
+    ``arms_self`` and ``arms_other`` are the whole images' arms. Semantics
+    == ``ops.cbca_joint.cbca_joint`` on the whole volume.
+
+    A round reads rows up to the radius away through the vertical arms
+    and nothing across rows otherwise (the other image's arms are probed
+    along the row), so each round exchanges the radius rows and runs
+    ``cbca_joint`` on the extended block with both images' halo-extended
+    arms, keeping its interior rows.
+    """
+    if num_iterations == 0:
+        return volume
+    radius = distance_threshold - 1
+    (start, stop), own = shard_arms(arms_self, volume, radius, mesh)
+    other = CrossArms(*(halo_rows(plane, start, stop, radius)
+                        for plane in arms_other))
+    for _ in range(num_iterations):
+        extended = exchange_halo(volume, radius, mesh)
+        volume = cbca_joint(extended, own, other, 1, distance_threshold,
+                            ndisp, choice).narrow(0, radius, stop - start)
     return volume

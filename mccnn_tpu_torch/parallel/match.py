@@ -24,13 +24,22 @@ H / N rows of each volume:
 The stage order is ``pipeline/match.py::match_pair``'s (right volume first;
 CBCA 1, SGM, CBCA 2, WTA), driven through its hooks. ``cbca_chunk_d`` does
 not apply (as under the JAX package's ``cbca_fn``).
+
+``MatchConfig.cbca_joint_regions`` is read as the JAX package reads it:
+with a kernel impl (its list below) the CBCA hook takes precedence and the
+flag is not read; with "auto", "xla" or "mxu", where the JAX package has
+no hook and GSPMD partitions ``cbca_joint``, each rank runs
+``parallel/cbca.py::cbca_joint_sharded`` on its halo-extended block.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mccnn_tpu_torch.models.net import FeatureNet
+from mccnn_tpu_torch.parallel.cbca import cbca_joint_sharded
 from mccnn_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_rows
 from mccnn_tpu_torch.parallel.pallas_shard import (
     make_sharded_cbca_fn,
@@ -39,6 +48,11 @@ from mccnn_tpu_torch.parallel.pallas_shard import (
 from mccnn_tpu_torch.parallel.sgm import make_sharded_sgm_fn
 from mccnn_tpu_torch.pipeline.match import _VOLUME_DTYPES, match_pair
 from mccnn_tpu_torch.utils.config import MatchConfig
+
+# the JAX package's CBCA impls that run through its shard_map hook
+# (mccnn_tpu/parallel/match.py); the joint-region flag is not read for them
+KERNEL_CBCA_IMPLS = ("fused", "fused16", "fused8", "fused2", "fused2_16",
+                     "pallas", "rolling", "rolling16")
 
 
 class RowShards:
@@ -71,13 +85,19 @@ def make_sharded_match(ndisp: int, config: MatchConfig, mesh: Mesh,
     matcher's names. With ``return_volumes`` the result is a dict: the
     disparity, the whole WTA maps, this rank's rows of the pre-WTA volumes
     and their ``rows`` range ``(start, stop)``.
+
+    With ``config.cbca_joint_regions`` a kernel impl
+    (``KERNEL_CBCA_IMPLS``) aggregates as without the flag, as in the JAX
+    package; "auto", "xla" and "mxu" aggregate over joint regions.
     """
-    if config.cbca_joint_regions:
-        raise ValueError("the joint-region CBCA is not sharded")
     cost_volume_fn = make_sharded_cost_volume_fn(
         ndisp, mesh, _VOLUME_DTYPES[volume_dtype], cost_volume_method)
     cbca_fn = make_sharded_cbca_fn(int(config.cbca_distance), mesh,
                                    cbca_impl)
+    cbca_joint_fn = None
+    if config.cbca_joint_regions and cbca_impl not in KERNEL_CBCA_IMPLS:
+        cbca_fn = None
+        cbca_joint_fn = functools.partial(cbca_joint_sharded, mesh=mesh)
     sgm_fn = make_sharded_sgm_fn(mesh)
 
     def sharded_match(net: FeatureNet, left_image: torch.Tensor,
@@ -88,8 +108,8 @@ def make_sharded_match(ndisp: int, config: MatchConfig, mesh: Mesh,
             volume_dtype=volume_dtype, cbca_impl=cbca_impl,
             return_volumes=return_volumes,
             cost_volume_method=cost_volume_method,
-            cost_volume_fn=cost_volume_fn, cbca_fn=cbca_fn, sgm_fn=sgm_fn,
-            rows=rows)
+            cost_volume_fn=cost_volume_fn, cbca_fn=cbca_fn,
+            cbca_joint_fn=cbca_joint_fn, sgm_fn=sgm_fn, rows=rows)
         if return_volumes:
             out["rows"] = (rows.start, rows.stop)
         return out

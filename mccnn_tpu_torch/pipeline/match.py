@@ -169,7 +169,7 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
                volume_dtype: str = "float32", cbca_impl: str = "auto",
                return_volumes: bool = False, cbca_chunk_d: int = 0,
                cost_volume_method: str = "auto", cost_volume_fn=None,
-               cbca_fn=None, sgm_fn=None, rows=None):
+               cbca_fn=None, cbca_joint_fn=None, sgm_fn=None, rows=None):
     """(H, W) standardized image pair -> (H, W) float32 disparity map.
 
     ``volume_dtype`` "bfloat16" stores the volumes in bf16 (the descriptors
@@ -199,7 +199,10 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
     maps, and the volumes are then built one at a time, right first,
     whatever the method; ``cbca_fn(volume, arms, iterations)`` aggregates
     with the whole image's arms (``cbca_chunk_d`` and the joint regions
-    are not read); ``sgm_fn`` takes ``_sgm_one_volume``'s arguments; and
+    are not read, as under the JAX package's ``cbca_fn``);
+    ``cbca_joint_fn`` takes ``cbca_joint``'s arguments and runs in its
+    place with ``config.cbca_joint_regions``; ``sgm_fn`` takes
+    ``_sgm_one_volume``'s arguments; and
     ``rows`` has ``gather(local)``, the whole map from every rank's rows,
     and ``local(whole)``, this rank's rows: the WTA maps are gathered
     before the LR check, which reads across rows, and subpixel runs on the
@@ -235,10 +238,11 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
                 other = right_image if choice == "L" else left_image
                 arms_other = compute_arms(other, config.cbca_intensity,
                                           distance)
+                joint = cbca_joint if cbca_joint_fn is None else cbca_joint_fn
 
                 def run(volume, iterations):
-                    return cbca_joint(volume, arms, arms_other, iterations,
-                                      distance, ndisp, choice)
+                    return joint(volume, arms, arms_other, iterations,
+                                 distance, ndisp, choice)
             else:
                 # the "mxu" mask stacks serve both CBCA stages of a volume
                 kwargs = ({"masks": build_masks(arms)}

@@ -37,7 +37,9 @@ def test_port_modules_import_without_jax():
                 "parallel.mesh", "parallel.cbca", "parallel.pallas_shard",
                 "parallel.sgm", "parallel.match", "parallel.train",
                 "parallel.launch", "tools.multiprocess_bringup",
-                "tools.multichip_midscale"):
+                "tools.multichip_midscale", "bench", "tools.bench_serve",
+                "tools.profile_pipeline", "tools.profile_fullres",
+                "tools.warmup", "tools.bench_all"):
         assert f"mccnn_tpu_torch.{new}" in modules
     assert "mccnn_tpu_torch.shared" not in modules
     code = (

@@ -135,12 +135,15 @@ def ranks4():
     cases = [("stencil", bringup.sharded_cbca, dict(
         volume=INPUTS["stencil_volume"], image=INPUTS["stencil_image"],
         intensity=0.8, distance=4, iterations=3))]
-    cases += [(f"match_{method}_{impl}", bringup.sharded_match, dict(
-        params=PARAMS, left=INPUTS["small_left"],
-        right=INPUTS["small_right"], ndisp=4,
-        config=MatchConfig(**MATCH_CFG), cost_volume_method=method,
-        cbca_impl=impl)) for method, impl in (("pallas", "fused"),
-                                              ("matmul", "xla"))]
+    cases += [(f"match_{method}_{impl}{'_joint' * joint}",
+               bringup.sharded_match, dict(
+                   params=PARAMS, left=INPUTS["small_left"],
+                   right=INPUTS["small_right"], ndisp=4,
+                   config=MatchConfig(**MATCH_CFG,
+                                      cbca_joint_regions=joint),
+                   cost_volume_method=method, cbca_impl=impl))
+              for method, impl in (("pallas", "fused"), ("matmul", "xla"))
+              for joint in (False, True)]
     return _spawn(4, cases)
 
 
@@ -217,14 +220,19 @@ def test_sharded_fused8_bit_equal_to_unsharded(ranks2):
 # (f) the sharded matcher on 4 ranks against JAX's on 4 devices
 
 
-@pytest.fixture(scope="module")
-def jax_sharded_match():
+def _jax_sharded_match(joint):
     fn = jpmatch.make_sharded_match(
-        4, JaxMatchConfig(**MATCH_CFG, sgm_chunk=1), jpmesh.make_mesh(4),
+        4, JaxMatchConfig(**MATCH_CFG, sgm_chunk=1,
+                          cbca_joint_regions=joint), jpmesh.make_mesh(4),
         cost_volume_method="matmul", cbca_impl="xla", return_volumes=True)
     out = fn(PARAMS, jnp.asarray(INPUTS["small_left"]),
              jnp.asarray(INPUTS["small_right"]))
     return {key: np.asarray(value) for key, value in out.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_sharded_match():
+    return _jax_sharded_match(joint=False)
 
 
 def _assert_match(got_ranks, want):
@@ -245,6 +253,31 @@ def _assert_match(got_ranks, want):
 def test_sharded_match_matches_jax(ranks4, jax_sharded_match, method, impl):
     _assert_match(bringup.case(ranks4, f"match_{method}_{impl}"),
                   jax_sharded_match)
+
+
+def test_sharded_joint_regions_match_jax(ranks4):
+    """With ``cbca_impl="xla"`` JAX has no CBCA hook and GSPMD partitions
+    ``cbca_joint``; the port runs it per halo-extended block."""
+    _assert_match(bringup.case(ranks4, "match_matmul_xla_joint"),
+                  _jax_sharded_match(joint=True))
+
+
+def test_sharded_kernel_hook_does_not_read_the_joint_flag(ranks4):
+    """With a kernel impl the hook takes precedence over the joint flag, as
+    in JAX: the result equals the unsharded port with the flag off, and the
+    sharded run without the flag bit for bit."""
+    want = match_pair(params_from_numpy(PARAMS),
+                      torch.from_numpy(INPUTS["small_left"]),
+                      torch.from_numpy(INPUTS["small_right"]), 4,
+                      MatchConfig(**MATCH_CFG), return_volumes=True,
+                      cbca_impl="fused", cost_volume_method="pallas")
+    got = bringup.case(ranks4, "match_pallas_fused_joint")
+    _assert_match(got, {key: value.numpy() for key, value in want.items()})
+    for with_flag, without in zip(got,
+                                  bringup.case(ranks4, "match_pallas_fused")):
+        for key, value in without.items():
+            np.testing.assert_array_equal(with_flag[key], value,
+                                          err_msg=key)
 
 
 # (g) a non-degenerate halo and reshard on 2 ranks against match_pair
