@@ -101,8 +101,14 @@ Run from the checkout root on a machine with one NVIDIA H100. It
  11. drives the bench entry points in this process: ``mccnn_tpu_torch.bench``
      (half, halfexact, quarter, full: the launches of one pair exact --
      K1 2, K2 36, K3 8; full K2 72 on 256-lane chunks of D_pad 512 -- the
-     parity check's limits, finite disparities; train), ``tools.bench_serve``
-     on six 1000 x 1504 scenes for the pipelined and the sync client,
+     parity check's limits, finite disparities; train), then K1, K2 and
+     K3 against their plain versions at the full config's depth (ndisp 400,
+     D_pad 512) on a 256-row strip of its 2000 x 3072 pair -- K1 on both
+     sides in bf16, K2 through ``_run_cbca`` on 256-lane chunks (and equal
+     to one launch over the whole depth), K3 in place in every direction --
+     with phase 7's tolerances, and a profile of one full pair
+     (``build/profile_full.txt``); ``tools.bench_serve`` on sixteen 1000 x
+     1504 scenes for the pipelined and the sync client,
      ``tools.profile_pipeline`` at the main shape, ``tools.profile_fullres``
      at 2000 x 3072, ndisp 400, and ``tools.warmup`` in a process of its own;
      each prints one JSON record naming this card.
@@ -264,8 +270,12 @@ SHARDED_RANKS = 2
 SHARDED_ODD_ROUNDS = (3, 5)
 MULTIHOST_SCENES = 3
 # the bench phase: its configs in-process, the serve bench's scenes a client
+# (15 gaps between completions for the steady rate), the rows of the full
+# config's pair on which K1, K2 and K3 are held to their plain versions at
+# D_pad 512
 BENCH_CONFIGS = ("half", "halfexact", "quarter", "full", "train")
-BENCH_SERVE_SCENES = 6
+BENCH_SERVE_SCENES = 16
+FULL_STRIP = (872, 1128)
 # the card's published peaks (H100 SXM data sheet, dense): device memory
 # rate; f32 outside the tensor cores, bf16 and int8 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -1176,6 +1186,17 @@ def bound(bytes_moved: float, operations: float, kind: str):
                                                             "operations")
 
 
+def compare_costs(errors: Errors, ndisp: int, name: str, what: str, got,
+                  want, tol: float) -> None:
+    """|got - want| on the real disparities within ``tol``; the pad lanes of
+    ``got`` must stay at ``BIG_COST``."""
+    err = (got[..., :ndisp].float()
+           - want[..., :ndisp].float()).abs().max().item()
+    errors.record(name, what, err, tol)
+    if got[..., ndisp:].float().min().item() < 1e8:
+        raise AssertionError(f"{name} {what}: pad lanes fell below 1e8")
+
+
 def main_shape_kernels(device, errors: Errors) -> dict:
     """Phase 7: each kernel against its plain version at the main-path
     shapes (1000 x 1504, ndisp 200, D_pad 256; K1-K3 in bf16 as the serving
@@ -1235,11 +1256,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
                                   150)
 
     def compare(name, what, got, want, tol):
-        err = (got[..., :ndisp].float()
-               - want[..., :ndisp].float()).abs().max().item()
-        errors.record(name, what, err, tol)
-        if got[..., ndisp:].float().min().item() < 1e8:
-            raise AssertionError(f"{name} {what}: pad lanes fell below 1e8")
+        compare_costs(errors, ndisp, name, what, got, want, tol)
 
     # the serving path's operands: (anchor, other) per side, arms of the
     # side's own image; sums of bf16 values round one ulp (2^-8) apart at
@@ -2331,12 +2348,135 @@ def drive_sharded(device, smi: str):
     return counts, summary
 
 
-def drive_bench(device, smi: str):
+def full_pair(device):
+    """The full config's ``init_params(0)`` net and its 2000 x 3072 pair on
+    the card, as ``bench.bench_full`` makes them."""
+    import torch
+    from mccnn_tpu_torch import bench
+    from mccnn_tpu_torch.models.net import init_params, params_from_numpy
+
+    net = params_from_numpy(init_params(0)).to(device)
+    height, width, _ = bench.FULL_SHAPE
+    left, right = (torch.from_numpy(x).to(device)
+                   for x in bench.bench_pair(height, width))
+    return net, left, right
+
+
+def full_depth_kernels(device, errors: Errors) -> None:
+    """Phase 11 (b): K1, K2 and K3 as the full config launches them, at
+    ndisp 400 and D_pad 512, on rows ``FULL_STRIP`` of its pair, against
+    their plain versions with phase 7's tolerances: K1 on both sides in
+    bf16 (four disparity blocks of 128) on those rows of the whole image's
+    bf16 descriptors; K2 through ``_run_cbca`` on the schedule's 256-lane
+    chunks, copied out and back, which must also equal one launch over the
+    whole depth bit for bit; K3 in place on K2's output in bf16 (its ring
+    at its shallowest), every direction."""
+    import torch
+    from mccnn_tpu_torch import bench
+    from mccnn_tpu_torch.models.net import extract_features
+    from mccnn_tpu_torch.ops.cbca import (
+        cbca_round,
+        compute_arms,
+        inverse_region_size,
+    )
+    from mccnn_tpu_torch.ops.cbca_fused import cbca_fused
+    from mccnn_tpu_torch.ops.common import pad_disparities
+    from mccnn_tpu_torch.ops.cost_volume import band_side, band_side_plain
+    from mccnn_tpu_torch.ops.sgm import _DIRECTIONS, sweep_cuda, sweep_plain
+    from mccnn_tpu_torch.pipeline.match import _run_cbca
+    from mccnn_tpu_torch.utils.config import MatchConfig
+
+    config = MatchConfig()
+    distance = config.cbca_distance
+    ndisp = bench.FULL_SHAPE[2]
+    d_pad, dtype = pad_disparities(ndisp), torch.bfloat16
+    chunk = bench.full_schedule()["cbca_chunk_d"]
+    rows = slice(*FULL_STRIP)
+    net, left, right = full_pair(device)
+    with torch.no_grad():
+        fl, fr = (extract_features(net, image)[rows].to(dtype).contiguous()
+                  for image in (left, right))
+    left, right = left[rows].contiguous(), right[rows].contiguous()
+    del net
+    sides = {"left": (fl, fr, left, "L"), "right": (fr, fl, right, "R")}
+    for side, (anchor, other, image, choice) in sides.items():
+        what = f"{side} D_pad {d_pad}"
+        # one bf16 ulp at the largest cost, as K3's tolerance: 2^-8 while
+        # every |cost| < 1, as phase 7's; bf16 descriptors of one image
+        # shifted can match to 1 and past it
+        volume = band_side(anchor, other, ndisp, d_pad, side, dtype)
+        want = band_side_plain(anchor, other, ndisp, d_pad, side, dtype)
+        top = want[..., :ndisp].float().abs().max().item()
+        compare_costs(errors, ndisp, "band_side", what, volume, want,
+                      bf16_ulp(top))
+        del want
+        arms = compute_arms(image, config.cbca_intensity, distance)
+        inv = inverse_region_size(arms, distance).contiguous()
+        chunked = _run_cbca(cbca_fused, volume.clone(), arms, 1, distance,
+                            chunk)
+        compare_costs(errors, ndisp, "cbca_round",
+                      f"{what}, {chunk}-lane chunks", chunked,
+                      cbca_round(volume, arms, inv, distance), 2.0 ** -8)
+        if not torch.equal(chunked, cbca_fused(volume, arms, 1, distance)):
+            raise AssertionError(f"cbca_round {what}: the {chunk}-lane "
+                                 "chunks differ from one launch")
+        del volume
+        for direction in _DIRECTIONS:
+            want = torch.empty_like(chunked)
+            sweep_plain(chunked, want, left, right, choice, direction,
+                        config)
+            got = chunked.clone()
+            sweep_cuda(got, got, left, right, choice, direction, config)
+            top = want[..., :ndisp].float().abs().max().item()
+            compare_costs(errors, ndisp, "sgm_sweep",
+                          f"{what} dir {direction} in place", got, want,
+                          2 * bf16_ulp(top))
+        del chunked, got, want
+    torch.cuda.synchronize()
+
+
+def profile_full_pair(device) -> None:
+    """Device time by kernel over one pair of the full config
+    (torch.profiler; the table in ``build/profile_full.txt``), and the
+    chunk copies of ``_run_cbca`` timed alone (CUDA events), which the
+    table counts under ``aten::copy_`` with every other copy: each of a
+    pair's 2 volumes x 2 CBCA stages copies each 256-lane chunk of D_pad
+    512 out and back once."""
+    import torch
+    from mccnn_tpu_torch import bench
+    from mccnn_tpu_torch.ops.common import pad_disparities
+
+    net, left, right = full_pair(device)
+    height, width, ndisp = bench.FULL_SHAPE
+    schedule = bench.full_schedule()
+    fn = bench.matcher(net, ndisp, schedule)
+    fn(left, right)
+    _, _, table = profiled(lambda: fn(left, right))
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_full.txt"), "w") as f:
+        f.write(table)
+    del net, fn
+    d_pad, chunk = pad_disparities(ndisp), schedule["cbca_chunk_d"]
+    volume = torch.zeros((height, width, d_pad), dtype=torch.bfloat16,
+                         device=device)
+    block = volume[:, :, :chunk].contiguous()
+    out_ms = time_events(lambda: volume[:, :, :chunk].contiguous(), 5)
+    back_ms = time_events(lambda: volume[:, :, :chunk].copy_(block), 5)
+    copies = 2 * 2 * d_pad // chunk
+    log(f"  chunk copies alone: out {out_ms:.4f} ms, back {back_ms:.4f} ms"
+        f" ({block.numel() * 2 / 1e9:.2f} GB each); a pair's {copies} + "
+        f"{copies}: {copies * (out_ms + back_ms):.1f} ms")
+
+
+def drive_bench(device, smi: str, errors: Errors):
     """Phase 11: the port's bench entry points in this process, as a user
     runs them: ``bench``'s half, halfexact, quarter, full and train configs
     (each config's launches in one pair against ``PER_PAIR``, K1, K2 and
     K8 against their plain versions within the JAX bench's limits, finite
-    disparities), ``tools.bench_serve`` with ``BENCH_SERVE_SCENES`` scenes
+    disparities), the full config's kernels against their plain versions
+    (``full_depth_kernels``) and a profile of one of its pairs,
+    ``tools.bench_serve`` with ``BENCH_SERVE_SCENES`` scenes
     at the main shape for the pipelined and the sync client (every scene
     answered and written), ``tools.profile_pipeline`` at the main shape,
     ``tools.profile_fullres`` at 2000 x 3072, ndisp 400, and
@@ -2372,9 +2512,11 @@ def drive_bench(device, smi: str):
         torch.cuda.empty_cache()
         record, seconds = quiet(bench.CONFIGS[config], device=str(device))
         if config == "train":
-            log(f"  train: {record['value']:.1f} steps/s at batch 128, loss "
-                f"{record['first_loss']:.4f} -> {record['last_loss']:.4f}, "
-                f"peak {record['peak_device_gb']} GB ({seconds:.1f} s)")
+            log(f"  train: {record['value']:.1f} steps/s at batch 128 (s a "
+                f"step {record['samples_s']} after {record['warmup_steps']}"
+                f" steps), loss {record['first_loss']:.4f} -> "
+                f"{record['last_loss']:.4f}, peak "
+                f"{record['peak_device_gb']} GB ({seconds:.1f} s)")
             continue
         path = f"bench {config}"
         counts[path] = {name: record["launches"].get(name, 0)
@@ -2392,6 +2534,15 @@ def drive_bench(device, smi: str):
     if set(records[0]["parity"]) != {"band_left", "band_right",
                                      "cbca_fused", "cbca_rolling"}:
         raise AssertionError(f"parity check: {records[0]['parity']}")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"  full config's kernels at D_pad 512, rows {FULL_STRIP}:")
+    full_depth_kernels(device, errors)
+    torch.cuda.empty_cache()
+    log("  profile of one full pair:")
+    profile_full_pair(device)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     root = os.path.join(ROOT, "build", "bench_serve")
     for client in ("pipelined", "sync"):
@@ -2551,10 +2702,12 @@ def main() -> int:
     launches.update(sharded_counts)
 
     phase("bench: mccnn_tpu_torch.bench half, halfexact, quarter, full and "
-          f"train; tools.bench_serve ({BENCH_SERVE_SCENES} scenes, pipelined "
-          "and sync); tools.profile_pipeline; tools.profile_fullres; "
+          "train; the full config's K1, K2 and K3 against their plain "
+          "versions at D_pad 512 and a profile of its pair; "
+          f"tools.bench_serve ({BENCH_SERVE_SCENES} scenes, pipelined and "
+          "sync); tools.profile_pipeline; tools.profile_fullres; "
           "tools.warmup")
-    bench_counts, bench_records = drive_bench(device, smi)
+    bench_counts, bench_records = drive_bench(device, smi, errors)
     launches.update(bench_counts)
 
     summary = {"kernels": [

@@ -17,7 +17,9 @@ Configs (``--config``), each the JAX bench's schedule:
   full:           2000 x 3072, ndisp 400, bf16 volumes, "fused",
                   ``cbca_chunk_d`` 256 (``CBCA_CHUNK_D``), D_pad 512: K1 2,
                   K2 72, K3 8.
-  train:          training steps/s at batch 128 on a fixed batch.
+  train:          training steps/s at batch 128 on a fixed batch: the
+                  best of three means of 50 steps, after 200 warm-up
+                  steps.
 
 ``seconds_per_pair`` is the best of three means of 3 pairs, each window
 ending in ``torch.cuda.synchronize()``; ``samples_s`` holds the three
@@ -78,6 +80,7 @@ from mccnn_tpu_torch.utils.config import MatchConfig
 
 TARGET_MPS = (1000 * 1504 / 1e6) / 5.0  # the < 5 s half-res north star
 HALF = {"volume_dtype": "bfloat16"}  # the serving schedule
+FULL_SHAPE = (2000, 3072, 400)  # H, W, ndisp of the full config
 PARITY_LIMITS = {"band": 1e-4, "cbca": 1e-3}  # the JAX bench's, absolute
 
 
@@ -159,11 +162,16 @@ def matcher(net, ndisp: int, match_kwargs: dict,
     return fn
 
 
-def bench_train(batch: int = 128, steps: int = 50,
-                device: str = "cuda") -> dict:
+def bench_train(batch: int = 128, steps: int = 50, device: str = "cuda",
+                warmup: int = 200, windows: int = 3) -> dict:
     """Training steps/s on a fixed batch of random (batch, 11, 11, 1)
-    triplets (``TrainConfig()``, ``init_params(0)``): one step, then
-    ``steps`` steps enqueued back to back and a sync."""
+    triplets (``TrainConfig()``, ``init_params(0)``): one step, ``warmup``
+    - 1 more and a sync, then ``windows`` windows of ``steps`` steps
+    enqueued back to back, each ending in a sync. ``seconds_per_step`` is
+    the best window's mean, ``samples_s`` holds every window's (as the
+    pair configs' are). The steps are host-bound on the card, so a fresh
+    process reads low until the host's and the card's clocks and caches
+    are warm: hence the warm-up (the JAX bench times 50 steps after one)."""
     from mccnn_tpu_torch.pipeline.train import (
         batch_to_device,
         make_optimizer,
@@ -185,23 +193,34 @@ def bench_train(batch: int = 128, steps: int = 50,
     first_loss = float(step(triplets))
     first_step_s = time.perf_counter() - t0
     log(f"first step loss {first_loss:.4f} ({first_step_s:.2f} s)")
-    reset_peak(device)
-    sync(device)
     t0 = time.perf_counter()
-    for _ in range(steps):
-        loss = step(triplets)
-    last_loss = float(loss)  # waits for the device
-    per_step = (time.perf_counter() - t0) / steps
+    for _ in range(warmup - 1):
+        step(triplets)
+    sync(device)
+    warmup_s = time.perf_counter() - t0
+    reset_peak(device)
+    samples = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step(triplets)
+        last_loss = float(loss)  # waits for the device
+        samples.append((time.perf_counter() - t0) / steps)
+    per_step = min(samples)
+    log(f"{warmup} warm-up steps in {warmup_s:.2f} s; then s/step {samples}")
     record = {
         "metric": f"train_steps_per_s_batch{batch}",
         "value": 1.0 / per_step,
         "unit": "steps/s",
         "vs_baseline": 1.0,
         "seconds_per_step": per_step,
+        "samples_s": samples,
         "steps": steps,
+        "warmup_steps": warmup,
         "first_loss": first_loss,
         "last_loss": last_loss,
         "first_step_s": first_step_s,
+        "warmup_s": warmup_s,
         "device": label,
         "peak_device_gb": peak_gb(device),
     }
@@ -349,10 +368,11 @@ def main(height: int = 1000, width: int = 1504, ndisp: int = 200,
          label: str = "halfres_full_pipeline_megapixels_per_s",
          match_kwargs: dict | None = None, parity: bool = True,
          stages: bool = True, schedule: str | None = "bf16_fused",
-         device: str = "cuda", windows: int = 3) -> dict:
+         device: str = "cuda", windows: int = 3, pairs: int = 3) -> dict:
     """Time one schedule (the serving one by default); print and return
-    its record. ``seconds_per_pair`` is the best of ``windows`` means of 3
-    pairs (3 in every config; fewer only to keep a test short)."""
+    its record. ``seconds_per_pair`` is the best of ``windows`` means of
+    ``pairs`` pairs (3 and 3 in every config; fewer only to keep a test
+    short)."""
     device = resolve_device(device)
     label_device = device_label(device)
     build_s = None
@@ -370,10 +390,12 @@ def main(height: int = 1000, width: int = 1504, ndisp: int = 200,
     right = torch.from_numpy(right_np).to(device)
     fn = matcher(net, ndisp, match_kwargs, config)
 
+    LAUNCHES.reset()
     t0 = time.perf_counter()
-    out = fn(left, right)
+    out = fn(left, right)  # one pair: its kernel launches
     finite = bool(torch.isfinite(out).all())  # waits for the device
     first_call_s = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.snapshot().items() if v}
     log(f"first call: {first_call_s:.2f} s (kernel build {build_s} s; "
         f"checksum {float(out.sum()):.1f})")
     if tuple(out.shape) != (height, width) or not finite:
@@ -388,11 +410,8 @@ def main(height: int = 1000, width: int = 1504, ndisp: int = 200,
         sync(device)  # the stream is in order: every pair has finished
         return (time.perf_counter() - t0) / iters
 
-    LAUNCHES.reset()
-    timed_pairs(1)  # one pair: its kernel launches
-    launches = {k: v for k, v in LAUNCHES.snapshot().items() if v}
     reset_peak(device)
-    samples = [timed_pairs(3) for _ in range(windows)]
+    samples = [timed_pairs(pairs) for _ in range(windows)]
     peak = peak_gb(device)
     best = min(samples)
     mpix_per_s = height * width / 1e6 / best
@@ -444,14 +463,15 @@ def bench_full(device: str = "cuda", stages: bool = False) -> dict:
     the JAX bench. Width 3072 is the bucket a ~3000-pixel Middlebury scene
     pads to."""
     return main(
-        2000, 3072, 400, "fullres_full_pipeline_megapixels_per_s",
-        match_kwargs={
-            "cbca_impl": "fused",
-            "volume_dtype": "bfloat16",
-            "cbca_chunk_d": int(os.environ.get("CBCA_CHUNK_D", "256")),
-        },
-        parity=False, stages=stages, schedule="bf16_fused_sequential",
-        device=device)
+        *FULL_SHAPE, "fullres_full_pipeline_megapixels_per_s",
+        match_kwargs=full_schedule(), parity=False, stages=stages,
+        schedule="bf16_fused_sequential", device=device)
+
+
+def full_schedule() -> dict:
+    """``match_pair``'s options in the full config."""
+    return {"cbca_impl": "fused", "volume_dtype": "bfloat16",
+            "cbca_chunk_d": int(os.environ.get("CBCA_CHUNK_D", "256"))}
 
 
 CONFIGS = {"half": main, "halfexact": bench_half_exact,

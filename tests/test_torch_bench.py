@@ -18,10 +18,13 @@ from mccnn_tpu.pipeline.match import match_pair as jax_match_pair  # noqa: E402
 from mccnn_tpu.utils.config import MatchConfig as JaxMatchConfig  # noqa: E402
 from mccnn_tpu_torch import bench  # noqa: E402
 from mccnn_tpu_torch.io.pfm import read_pfm  # noqa: E402
-from mccnn_tpu_torch.models.net import params_from_numpy  # noqa: E402
+from mccnn_tpu_torch.models.net import (  # noqa: E402
+    init_params,
+    params_from_numpy,
+)
 from mccnn_tpu_torch.tools import bench_all, bench_serve  # noqa: E402
 
-from torch_parity import jax_params, jitted  # noqa: E402
+from torch_parity import jitted  # noqa: E402
 
 HEIGHT, WIDTH, NDISP = 24, 40, 8
 # the JAX bench's record keys and isolated stages (bench.py:329-351, :259)
@@ -49,11 +52,11 @@ def test_bench_pair_is_the_jax_bench_pair(shape):
 
 
 def test_main_prints_one_record_with_the_jax_keys(capsys):
-    # one window of 3 pairs, and no parity check (96 x 256 plain CBCA
+    # one window of one pair, and no parity check (96 x 256 plain CBCA
     # rounds, 4 s here: it holds kernels to plain versions, which on the
     # CPU are the same functions; chip_smoke.py runs it on the card)
     record = bench.main(HEIGHT, WIDTH, NDISP, device="cpu", windows=1,
-                        parity=False)
+                        pairs=1, parity=False)
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 1
     assert json.loads(lines[0]) == record
@@ -73,34 +76,68 @@ def test_main_prints_one_record_with_the_jax_keys(capsys):
     assert len(record["samples_s"]) == 1 and "parity" not in record
 
 
+def _jax_band_bf16(features_left, features_right, sides):
+    """JAX's band on descriptors rounded to bf16, f32 sums, bf16 volumes:
+    what its band kernel computes on its chip (the one-pass DEFAULT dot
+    rounds each operand to bf16), by its matrix-product route, bit for bit
+    at this size; the kernel in interpret mode adds 2 s of compile."""
+    import jax.numpy as jnp
+    from mccnn_tpu.ops.cost_volume import cost_volume_pair
+
+    def rounded(f):
+        return f.astype(jnp.bfloat16).astype(jnp.float32)
+
+    return cost_volume_pair(rounded(features_left), rounded(features_right),
+                            NDISP, method="matmul", sides=sides,
+                            dtype=jnp.bfloat16)
+
+
 def test_half_schedule_matches_jax_on_carried_weights():
     """The bench's serving schedule (bf16 volumes, paper defaults) against
-    JAX's match_pair on the same pair and weights, on the route the JAX
-    bench takes on its chip: the band kernel (interpret mode here), whose
-    correlation rounds the descriptors to bf16 as the port's band does
-    (JAX's CPU "auto" correlates f32 descriptors), and CBCA with f32 sums
-    stored per round ("xla", what K2 computes)."""
-    params = jax_params()
+    JAX's match_pair on the same pair and the bench's weights
+    (``init_params(0)``, carried to both), on the route the JAX bench takes
+    on its chip: the band on bf16-rounded descriptors as the port's band
+    (JAX's CPU "auto" correlates f32 descriptors), one volume at a time,
+    and CBCA with f32 sums stored per round ("xla", what K2 computes).
+    The volumes agree to one bf16 ulp at the largest cost (the band's sums
+    round apart on a few entries), the WTA maps exactly. JAX's compile is
+    most of the time and does not shrink with the shape."""
+    params = init_params(0)
     left, right = bench.bench_pair(HEIGHT, WIDTH)
     run = bench.matcher(params_from_numpy(params), NDISP,
                         {**bench.HALF, "return_volumes": True})
     got = {k: v.float().numpy() for k, v in run(
         torch.from_numpy(left), torch.from_numpy(right)).items()}
-    want = jitted(jax_match_pair, "ndisp", "config", "cost_volume_method",
-                  "cbca_impl", "volume_dtype", "return_volumes")(
+    # the features held across the right volume's phase, as JAX's default
+    # band schedule holds them (the same values as recomputing them)
+    want = jitted(jax_match_pair, "ndisp", "config", "cost_volume_fn",
+                  "cbca_impl", "volume_dtype", "return_volumes",
+                  "recompute_features")(
         params, left, right, ndisp=NDISP, config=JaxMatchConfig(sgm_chunk=1),
-        cost_volume_method="pallas", cbca_impl="xla",
-        volume_dtype="bfloat16", return_volumes=True)
+        cost_volume_fn=_jax_band_bf16, cbca_impl="xla",
+        volume_dtype="bfloat16", return_volumes=True,
+        recompute_features=False)
+    want = {k: np.asarray(v).astype(np.float32) for k, v in want.items()}
+    for key in ("left_volume", "right_volume"):
+        costs = want[key][..., :NDISP]
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(costs).max())) - 7)
+        np.testing.assert_allclose(got[key][..., :NDISP], costs, atol=ulp,
+                                   rtol=0)
+        np.testing.assert_array_equal(got[key][..., NDISP:],
+                                      want[key][..., NDISP:])
     for key in ("left_disparity", "right_disparity"):
-        np.testing.assert_array_equal(got[key], np.asarray(want[key]))
-    np.testing.assert_allclose(got["disparity"], np.asarray(
-        want["disparity"]), atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(got[key], want[key])
+    np.testing.assert_allclose(got["disparity"], want["disparity"],
+                               atol=1e-4, rtol=0)
 
 
 def test_bench_train_record():
-    record = bench.bench_train(batch=8, steps=2, device="cpu")
+    record = bench.bench_train(batch=8, steps=2, device="cpu", warmup=2,
+                               windows=2)
     assert record["metric"] == "train_steps_per_s_batch8"
     assert record["value"] == 1.0 / record["seconds_per_step"]
+    assert record["seconds_per_step"] == min(record["samples_s"])
+    assert len(record["samples_s"]) == 2 and record["warmup_steps"] == 2
     assert record["device"] == "cpu" and record["peak_device_gb"] is None
     assert np.isfinite([record["first_loss"], record["last_loss"]]).all()
 
