@@ -169,9 +169,9 @@ def bench_train(batch: int = 128, steps: int = 50, device: str = "cuda",
     - 1 more and a sync, then ``windows`` windows of ``steps`` steps
     enqueued back to back, each ending in a sync. ``seconds_per_step`` is
     the best window's mean, ``samples_s`` holds every window's (as the
-    pair configs' are). The steps are host-bound on the card, so a fresh
-    process reads low until the host's and the card's clocks and caches
-    are warm: hence the warm-up (the JAX bench times 50 steps after one)."""
+    pair configs' are). The steps are host-bound on the card and a fresh
+    process reads low over its first ones: hence the warm-up (the JAX
+    bench times 50 steps after one)."""
     from mccnn_tpu_torch.pipeline.train import (
         batch_to_device,
         make_optimizer,
