@@ -17,8 +17,9 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      operands), K8, K9 and K4 there too, K7 also against K2, and K3 there in
      every direction, in place and out of place, on planes and on codes;
      K3 on penalty codes; K6 also against K5; K5 and K6 at shapes ragged
-     for their tile (``RAGGED_BANDS``): K5 in f32 against two K1 launches,
-     in bf16 against the f32 launch rounded, -K6 against K5 and K6's bf16
+     for their tile (``RAGGED_BANDS``): K1's f32 route on either side
+     against its plain version, K5 in f32 against two K1 launches, in bf16
+     against the f32 launch rounded, -K6 against K5 and K6's bf16
      output against its f32 output rounded, all at 0.0, each against its
      plain version; K10's output against its input in both layouts);
   4. drives the serving path -- ``MatchPipeline.dispatch``/``fetch`` at
@@ -54,7 +55,8 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      arms, K9 per pass in bf16, f32, with bf16 operands (path V3) and at
      full arms, K4 per 128-lane launch and at full arms, K7 with and
      without its 512-thread lever and K10's floor at the tiling of K2 and
-     K7; K1 per side in bf16 and f32; K5 in f32 and bf16 and K6 with f32
+     K7; K1 per side in bf16 and f32, the f32 route on either side, each
+     also against its plain version; K5 in f32 and bf16 and K6 with f32
      and bf16 output; K3 in place as the chained path
      launches it, out of place, and in f32), computes each
      kernel's bound from this run's inputs, and profiles one pair;
@@ -104,8 +106,9 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      parity check's limits, finite disparities; train), then K1, K2 and
      K3 against their plain versions at the full config's depth (ndisp 400,
      D_pad 512) on a 256-row strip of its 2000 x 3072 pair -- K1 on both
-     sides in bf16, K2 through ``_run_cbca`` on 256-lane chunks (and equal
-     to one launch over the whole depth), K3 in place in every direction --
+     sides in bf16 and in f32 (also against K5 f32), K2 through
+     ``_run_cbca`` on 256-lane chunks (and equal to one launch over the
+     whole depth), K3 in place in every direction --
      with phase 7's tolerances, and a profile of one full pair
      (``build/profile_full.txt``); ``tools.bench_serve`` on sixteen 1000 x
      1504 scenes for the pipelined and the sync client,
@@ -661,11 +664,13 @@ def check_ragged_rounds(device, errors: Errors) -> None:
 
 
 def check_ragged_bands(device, errors: Errors) -> None:
-    """Phase 3 at the shapes of ``RAGGED_BANDS``. K5 in f32 against two K1
-    f32 launches, in bf16 against the f32 launch on the bf16 values,
-    rounded; -K6 against K5 with ndisp = d_pad on the chunks that cover
-    its depth, K6 with bf16 output against its f32 output, rounded: the
-    same fmaf chain, tolerance 0.0. Each also against its plain version:
+    """Phase 3 at the shapes of ``RAGGED_BANDS``. K1's f32 route on either
+    side against its plain version (``compare_side_f32``). K5 in f32
+    against two K1 f32 launches, in bf16 against the f32 launch on the
+    bf16 values, rounded; -K6 against K5 with ndisp = d_pad on the chunks
+    that cover its depth, K6 with bf16 output against its f32 output,
+    rounded: the same fmaf chain, tolerance 0.0. Each also against its
+    plain version:
     f32 1e-5 (the plain correlation is cuBLAS's, whose order at these
     shapes is its own), bf16 one ulp at |value| <= 1 (2^-8)."""
     import torch
@@ -675,6 +680,7 @@ def check_ragged_bands(device, errors: Errors) -> None:
         band_pair_scores,
         band_pair_scores_plain,
         band_side,
+        band_side_plain,
     )
 
     rng = np.random.default_rng(SEED + 5)
@@ -686,6 +692,11 @@ def check_ragged_bands(device, errors: Errors) -> None:
         exact32 = band_pair(fl, fr, ndisp, d_pad, torch.float32)
         ones = (band_side(fl, fr, ndisp, d_pad, "left", torch.float32),
                 band_side(fr, fl, ndisp, d_pad, "right", torch.float32))
+        for side, one, (anchor, other) in zip(("left", "right"), ones,
+                                              ((fl, fr), (fr, fl))):
+            compare_side_f32(errors, ndisp, f"{shape} f32 {side}", one,
+                             band_side_plain(anchor, other, ndisp, d_pad,
+                                             side, torch.float32))
         widened = band_pair(fl.to(torch.bfloat16).float(),
                             fr.to(torch.bfloat16).float(), ndisp, d_pad,
                             torch.float32)
@@ -1197,6 +1208,19 @@ def compare_costs(errors: Errors, ndisp: int, name: str, what: str, got,
         raise AssertionError(f"{name} {what}: pad lanes fell below 1e8")
 
 
+def compare_side_f32(errors: Errors, ndisp: int, what: str, got,
+                     want) -> None:
+    """K1's f32 route against its plain version: 1e-5 (the plain
+    correlation is cuBLAS's, summed in its own order; |cost| <= 1), the
+    zeros where no match exists and the pad lanes exact."""
+    errors.record("band_side", what, (got - want).abs().max().item(), 1e-5)
+    zero = want[..., :ndisp] == 0
+    if not (bool((got[..., :ndisp][zero] == 0).all())
+            and bool((got[..., ndisp:] == want[..., ndisp:]).all())):
+        raise AssertionError(f"band_side {what}: zeros or pad lanes differ "
+                             "from the plain version")
+
+
 def main_shape_kernels(device, errors: Errors) -> dict:
     """Phase 7: each kernel against its plain version at the main-path
     shapes (1000 x 1504, ndisp 200, D_pad 256; K1-K3 in bf16 as the serving
@@ -1338,6 +1362,11 @@ def main_shape_kernels(device, errors: Errors) -> dict:
             band_side(fr32, fl32, ndisp, d_pad, "right", torch.float32))
     for side, got, one in zip(("left", "right"), pair32, ones):
         compare("band_pair", f"{side} f32 vs two band_side", got, one, 0.0)
+    for side, one, (anchor, other) in zip(("left", "right"), ones,
+                                          ((fl32, fr32), (fr32, fl32))):
+        compare_side_f32(errors, ndisp, f"{side} f32", one,
+                         band_side_plain(anchor, other, ndisp, d_pad, side,
+                                         torch.float32))
     del ones
     for side, vol32 in zip(("left", "right"), pair32):
         _, arms, inv, _, _ = volumes[side]
@@ -1516,6 +1545,8 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     extras = (
         ("band_side", "ms_f32", lambda: band_side(
             fl32, fr32, ndisp, d_pad, "left", torch.float32)),
+        ("band_side", "ms_f32_right", lambda: band_side(
+            fr32, fl32, ndisp, d_pad, "right", torch.float32)),
         ("band_pair", "ms_bf16", lambda: band_pair(
             fl, fr, ndisp, d_pad, dtype)),
         ("band_scores", "ms_bf16_out", lambda: band_pair_scores(
@@ -1621,8 +1652,9 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         f"{k2['ms_f32']:.4f}); K10's floor at the tiling of K2 and K7 "
         f"{STREAM_TILES[walk_label]} {times['cbca_stream']['ms']:.4f} ms "
         f"(window traffic {times['cbca_stream']['window_bound_ms']:.4f}); K1 "
-        f"per side bf16 {times['band_side']['ms']:.4f}, f32 "
-        f"{times['band_side']['ms_f32']:.4f} ms; K5 f32 "
+        f"per side bf16 {times['band_side']['ms']:.4f}, f32 left "
+        f"{times['band_side']['ms_f32']:.4f}, right "
+        f"{times['band_side']['ms_f32_right']:.4f} ms; K5 f32 "
         f"{times['band_pair']['ms']:.4f}, bf16 "
         f"{times['band_pair']['ms_bf16']:.4f} ms; K6 f32 out "
         f"{times['band_scores']['ms']:.4f}, bf16 out "
@@ -1675,14 +1707,17 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         times[name].update(bound_ms=ms, bound_by=by)
         log(f"  {name:18s} bound {ms:.4f} ms by {by}: the kernel takes "
             f"{times[name]['ms'] / ms:.1f} x that")
-    # the other routes: K1's f32 one (path E: f32 descriptors in, an f32
-    # band out, its multiply-adds at the f32 rate), K8's f32 one (path V4:
-    # the f32 volume read and written once, the sums as in bf16), K5 in
-    # bf16 (bf16 descriptors in, bf16 bands out; its multiply-adds are the
-    # f32 fmaf chain on the widened values, at the f32 rate) and K6 with
-    # bf16 output
+    # the other routes: K1's f32 one on either side (path E: f32
+    # descriptors in, an f32 band out, its multiply-adds at the f32 rate;
+    # the right side's in-range outputs are as many as the left's), K8's
+    # f32 one (path V4: the f32 volume read and written once, the sums as
+    # in bf16), K5 in bf16 (bf16 descriptors in, bf16 bands out; its
+    # multiply-adds are the f32 fmaf chain on the widened values, at the
+    # f32 rate) and K6 with bf16 output
     for name, key, moved, work in (
             ("band_side", "f32",
+             2 * height * width * 64 * 4 + elements * 4, band_flop),
+            ("band_side", "f32_right",
              2 * height * width * 64 * 4 + elements * 4, band_flop),
             ("cbca_rolling_round", "f32", 2 * elements * 4 + planes,
              arm_adds),
@@ -2367,7 +2402,8 @@ def full_depth_kernels(device, errors: Errors) -> None:
     ndisp 400 and D_pad 512, on rows ``FULL_STRIP`` of its pair, against
     their plain versions with phase 7's tolerances: K1 on both sides in
     bf16 (four disparity blocks of 128) on those rows of the whole image's
-    bf16 descriptors; K2 through ``_run_cbca`` on the schedule's 256-lane
+    bf16 descriptors, and in f32 on their f32 descriptors (also against
+    K5 f32, bit for bit); K2 through ``_run_cbca`` on the schedule's 256-lane
     chunks, copied out and back, which must also equal one launch over the
     whole depth bit for bit; K3 in place on K2's output in bf16 (its ring
     at its shallowest), every direction."""
@@ -2381,7 +2417,11 @@ def full_depth_kernels(device, errors: Errors) -> None:
     )
     from mccnn_tpu_torch.ops.cbca_fused import cbca_fused
     from mccnn_tpu_torch.ops.common import pad_disparities
-    from mccnn_tpu_torch.ops.cost_volume import band_side, band_side_plain
+    from mccnn_tpu_torch.ops.cost_volume import (
+        band_pair,
+        band_side,
+        band_side_plain,
+    )
     from mccnn_tpu_torch.ops.sgm import _DIRECTIONS, sweep_cuda, sweep_plain
     from mccnn_tpu_torch.pipeline.match import _run_cbca
     from mccnn_tpu_torch.utils.config import MatchConfig
@@ -2394,10 +2434,25 @@ def full_depth_kernels(device, errors: Errors) -> None:
     rows = slice(*FULL_STRIP)
     net, left, right = full_pair(device)
     with torch.no_grad():
-        fl, fr = (extract_features(net, image)[rows].to(dtype).contiguous()
-                  for image in (left, right))
+        fl32, fr32 = (extract_features(net, image)[rows].contiguous()
+                      for image in (left, right))
     left, right = left[rows].contiguous(), right[rows].contiguous()
     del net
+    # K1's f32 route on those rows' f32 descriptors: against its plain
+    # version, and the two sides against K5 f32 bit for bit
+    pair32 = band_pair(fl32, fr32, ndisp, d_pad, torch.float32)
+    for side, k5, (anchor, other) in zip(("left", "right"), pair32,
+                                         ((fl32, fr32), (fr32, fl32))):
+        got = band_side(anchor, other, ndisp, d_pad, side, torch.float32)
+        compare_side_f32(errors, ndisp, f"{side} D_pad {d_pad} f32", got,
+                         band_side_plain(anchor, other, ndisp, d_pad, side,
+                                         torch.float32))
+        if not torch.equal(got, k5):
+            raise AssertionError(f"band_pair {side} D_pad {d_pad} f32: "
+                                 "differs from band_side")
+    del pair32, got, k5
+    fl, fr = fl32.to(dtype), fr32.to(dtype)
+    del fl32, fr32
     sides = {"left": (fl, fr, left, "L"), "right": (fr, fl, right, "R")}
     for side, (anchor, other, image, choice) in sides.items():
         what = f"{side} D_pad {d_pad}"

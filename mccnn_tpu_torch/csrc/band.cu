@@ -12,9 +12,10 @@
 //
 // Bound: bytes. A half-resolution side (1000 x 1504 x 256, bf16) writes
 // 0.77 GB and reads 0.39 GB of descriptors; its 49 GFLOP are 0.05 ms at the
-// bf16 tensor rate. 64 scalar FMAs per output, each fed by a shared-memory
-// load, are not: that design is bound by the shared-memory pipe at about
-// ten times the byte bound.
+// bf16 tensor rate. One output a thread, each of its 64 scalar FMAs fed
+// by a shared-memory load (the first port of both routes), is bound by the
+// shared-memory pipe at six to ten times the byte bound: both routes reuse
+// each staged operand across many outputs.
 //
 // bf16 descriptors (the serving path): the tensor cores. One block of four
 // warps per (image row, 64-column tile, 128-disparity chunk). The anchor
@@ -41,87 +42,86 @@
 // rows padded to 136 values) = 54,272 bytes, dynamic, four blocks per SM;
 // 16 + 4 + 2 fragment and accumulator registers live in the inner loop.
 //
-// f32 descriptors (the exact-f32 schedules): one block per (image row,
-// 32-column tile, 128-disparity chunk), thread t owns disparity d0 + t and
-// runs the 64-term fmaf chain in channel order out of f32 tiles in shared
-// memory. K5 and K6 run the same chain, so K5 in f32 equals two of these
-// launches bit for bit; TF32 tensor cores would break that.
-#include "common.cuh"
+// f32 descriptors (the exact-f32 schedules): the block routine of K5 and
+// K6 (band_tile.cuh), one-sided. One block of 128 threads per (image row,
+// 64-column tile, 128-disparity chunk), column tiles up to width only;
+// each thread holds a register tile of 4 columns x 16 disparities at a
+// stride of 4, read along the correlation tile's diagonals on the left
+// (context fR from w0 - d0 - 127) and its anti-diagonals on the right
+// (context fL from w0 + d0), so 4 anchor and 19 context float4 loads feed
+// 256 multiply-adds. Channel slices of 16 come in by cp.async two in
+// flight (40,800 bytes of shared memory), the band tile (33,792 bytes)
+// overlays them, and the block stores whole 128-lane runs of each pixel
+// in 16-byte pieces; a chunk of pad lanes only is written with BIG_COST
+// and nothing staged. 128 registers with 60 bytes spilled, four blocks
+// per SM. Each output is one 64-term fmaf chain in channel order from
+// 0.f, as K5 and K6 run it, so K5 in f32 equals two of these launches bit
+// for bit; TF32 or the tensor cores would sum in another order. Bound:
+// bytes (two (H, W, 64) f32 reads and one (H, W, D_pad) f32 write, 2.31
+// GB at 1000 x 1504 x 256: 0.69 ms; its 36.0 GFLOP at ndisp 200 take
+// 0.54 ms at the f32 rate). It takes about 2.5 x that: a block stages 191
+// context pixels beside its 64 anchor pixels (3.1 GB read from L2 a
+// side), multiplies, then stores, one after the other (PERF.md §6).
+#include "band_tile.cuh"
 
 namespace {
 
 constexpr int kChannels = 64;
-constexpr int kTileW = 32;
-constexpr int kChunkD = 128;                  // threads per block
-constexpr int kCtx = kTileW + kChunkD - 1;    // context columns (159)
+constexpr int kChunkD = 128;  // disparities per block
 
-__global__ void __launch_bounds__(kChunkD)
+// ---- f32: the one-sided block routine of band_tile.cuh ----
+
+namespace band = mccnn::band;
+
+// the register tile and column tile of this route, the fastest of
+// tools/time_band_variants.py's shapes on the card (PERF.md §6): a
+// thread's 4 columns x 16 disparities, 64 columns a block. The tool's
+// macros set every band kernel's tile at once.
+constexpr int kSideBw = 4;
+constexpr int kSideBd = 16;
+constexpr int kSideTileW = 64;
+#ifdef MCCNN_BAND_TILE_W
+using SideTile = band::ShippedTile;
+#else
+using SideTile = band::Tile<kSideBw, kSideBd, kSideTileW>;
+#endif
+
+struct FinalizedSide {
+  float* out;
+  int d_pad;
+  int ndisp;
+  __device__ int compute_end() const { return ndisp; }
+  __device__ int depth() const { return d_pad; }
+  __device__ float value(float score, int d, bool matched) const {
+    // no correspondence: 0, the border fills overwrite it
+    return d >= ndisp ? mccnn::kBigCost : matched ? -score : 0.f;
+  }
+};
+
+template <band::Side D, class S>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
 band_side_f32_kernel(const float* __restrict__ anchor,
                      const float* __restrict__ other,
-                     float* __restrict__ out, int width, int d_pad, int ndisp,
-                     int right) {
-  __shared__ __align__(16) float s_anchor[kTileW * kChannels];
-  __shared__ float s_ctx[kChannels * kCtx];
+                     float* __restrict__ out, int width, int d_pad,
+                     int ndisp) {
+  band::band_side_block<float, float, S, D>(
+      anchor, other, width, FinalizedSide{out, d_pad, ndisp});
+}
 
-  const int w0 = blockIdx.x * kTileW;
-  const int d0 = blockIdx.z * kChunkD;
-  const int t = threadIdx.x;
-  const int d = d0 + t;
-  const size_t row = static_cast<size_t>(blockIdx.y) * width;
-
-  if (d0 >= ndisp) {  // the whole chunk is pad lanes
-    for (int wl = 0; wl < kTileW && w0 + wl < width; ++wl) {
-      out[(row + w0 + wl) * d_pad + d] = mccnn::kBigCost;
-    }
-    return;
-  }
-
-  for (int e = t; e < kTileW * kChannels; e += kChunkD) {
-    const int gw = w0 + e / kChannels;
-    s_anchor[e] =
-        gw < width ? anchor[(row + gw) * kChannels + e % kChannels] : 0.f;
-  }
-  // context column x holds other-image column base + x: the left band reads
-  // columns w - d, the right band w + d
-  const int base = right ? w0 + d0 : w0 - d0 - (kChunkD - 1);
-  for (int e = t; e < kCtx * kChannels; e += kChunkD) {
-    const int x = e / kChannels;
-    const int c = e % kChannels;
-    const int gx = base + x;
-    s_ctx[c * kCtx + x] =
-        (gx >= 0 && gx < width) ? other[(row + gx) * kChannels + c] : 0.f;
-  }
-  __syncthreads();
-
-  for (int wl = 0; wl < kTileW; ++wl) {
-    const int gw = w0 + wl;
-    if (gw >= width) break;
-    float v;
-    if (d >= ndisp) {
-      v = mccnn::kBigCost;
-    } else {
-      const int src = right ? gw + d : gw - d;
-      if (src < 0 || src >= width) {
-        v = 0.f;  // no correspondence: the border fills overwrite it
-      } else {
-        const int x = right ? wl + t : wl - t + (kChunkD - 1);
-        const float4* a =
-            reinterpret_cast<const float4*>(s_anchor + wl * kChannels);
-        float acc = 0.f;
-#pragma unroll
-        for (int c4 = 0; c4 < kChannels / 4; ++c4) {
-          const float4 av = a[c4];
-          const float* col = s_ctx + 4 * c4 * kCtx + x;
-          acc = fmaf(av.x, col[0], acc);
-          acc = fmaf(av.y, col[kCtx], acc);
-          acc = fmaf(av.z, col[2 * kCtx], acc);
-          acc = fmaf(av.w, col[3 * kCtx], acc);
-        }
-        v = -acc;
-      }
-    }
-    out[(row + gw) * d_pad + d] = v;
-  }
+template <band::Side D, class S>
+cudaError_t launch_side_f32(const void* anchor, const void* other,
+                            void* out, int height, int width, int d_pad,
+                            int ndisp, cudaStream_t s) {
+  constexpr size_t kBytes = band::Layout<float, float, S>::kBytes;
+  static bool shared_allowed[mccnn::kMaxDevices];
+  const cudaError_t err = mccnn::allow_shared_once(
+      band_side_f32_kernel<D, S>, kBytes, shared_allowed);
+  if (err != cudaSuccess) return err;
+  band_side_f32_kernel<D, S>
+      <<<band::side_grid<S>(height, width, d_pad), S::kThreads, kBytes, s>>>(
+          static_cast<const float*>(anchor), static_cast<const float*>(other),
+          static_cast<float*>(out), width, d_pad, ndisp);
+  return cudaGetLastError();
 }
 
 // ---- bf16: mma.sync ----
@@ -262,32 +262,29 @@ extern "C" int mccnn_band_side(const void* anchor, const void* other,
                                void* out, int height, int width, int channels,
                                int d_pad, int ndisp, int right, int bf16,
                                void* stream) {
-  if (channels != kChannels || d_pad % kChunkD || height > 65535) {
+  if (channels != kChannels || d_pad % kChunkD || height > 65535 ||
+      !mccnn::aligned_16(anchor, other, out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (reinterpret_cast<size_t>(anchor) % 16 ||
-        reinterpret_cast<size_t>(other) % 16 ||
-        reinterpret_cast<size_t>(out) % 16) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    static bool shared_allowed[mccnn::kMaxDevices];
-    const cudaError_t err = mccnn::allow_shared_once(
-        band_side_bf16_kernel, kMmaSharedBytes, shared_allowed);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((width + kMmaTileW - 1) / kMmaTileW, height,
-                    d_pad / kChunkD);
-    band_side_bf16_kernel<<<grid, kMmaThreads, kMmaSharedBytes, s>>>(
-        static_cast<const __nv_bfloat16*>(anchor),
-        static_cast<const __nv_bfloat16*>(other),
-        static_cast<__nv_bfloat16*>(out), width, d_pad, ndisp, right);
-  } else {
-    const dim3 grid((width + kTileW - 1) / kTileW, height, d_pad / kChunkD);
-    band_side_f32_kernel<<<grid, kChunkD, 0, s>>>(
-        static_cast<const float*>(anchor), static_cast<const float*>(other),
-        static_cast<float*>(out), width, d_pad, ndisp, right);
+  if (!bf16) {
+    using S = SideTile;
+    return static_cast<int>(
+        right ? launch_side_f32<band::Side::kRight, S>(
+                    anchor, other, out, height, width, d_pad, ndisp, s)
+              : launch_side_f32<band::Side::kLeft, S>(
+                    anchor, other, out, height, width, d_pad, ndisp, s));
   }
+  static bool shared_allowed[mccnn::kMaxDevices];
+  const cudaError_t err = mccnn::allow_shared_once(
+      band_side_bf16_kernel, kMmaSharedBytes, shared_allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((width + kMmaTileW - 1) / kMmaTileW, height,
+                  d_pad / kChunkD);
+  band_side_bf16_kernel<<<grid, kMmaThreads, kMmaSharedBytes, s>>>(
+      static_cast<const __nv_bfloat16*>(anchor),
+      static_cast<const __nv_bfloat16*>(other),
+      static_cast<__nv_bfloat16*>(out), width, d_pad, ndisp, right);
   return static_cast<int>(cudaGetLastError());
 }
 

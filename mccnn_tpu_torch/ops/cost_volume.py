@@ -19,8 +19,9 @@ f32, and the correlation accumulates in f32 either way. On bf16
 descriptors K1 multiplies on the tensor cores (``mma.sync``) and reads the
 band off the correlation tile's diagonals, so only the order of the
 64-term sum differs from the plain version's and from K5's: the stored
-bf16 values lie within one ulp. On f32 descriptors K1 runs K5's fmaf chain
-in channel order, and K5 equals two K1 launches bit for bit.
+bf16 values lie within one ulp. On f32 descriptors K1 runs K5's block
+routine (``csrc/band_tile.cuh``) one-sided, with its fmaf chain in channel
+order, and K5 equals two K1 launches bit for bit.
 
 ``band_pair_pallas`` is the counterpart of the JAX package's function of
 that name (mccnn_tpu/ops/cost_volume_pallas.py): with ``use_mxu=True`` it

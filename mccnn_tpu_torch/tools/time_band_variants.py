@@ -1,25 +1,28 @@
-"""Time K5 (``csrc/band_pair.cu``) and K6 (``csrc/band_vpu.cu``) beside
-tile shapes of their block routine that they do not ship, on one card.
+"""Time K1's f32 route (``csrc/band.cu``), K5 (``csrc/band_pair.cu``) and
+K6 (``csrc/band_vpu.cu``) beside tile shapes of their block routine that
+they do not ship, on one card.
 
     python -m mccnn_tpu_torch.tools.time_band_variants [--against DIR]
 
-K5 and K6 are two epilogues on one block routine (``csrc/band_tile.cuh``),
-instantiated at the shipped register tile and column tile
-(``ShippedTile``). This tool compiles both sources again at other shapes
--- a thread's columns x disparities (``Bw`` x ``Bd``) and the block's
-columns -- by defining ``MCCNN_BAND_TILE_BW``, ``_BD`` and ``_W`` and
-renaming the C entry points, one ``nvcc`` per source and shape under the
-build directory, all started together. ``--against DIR`` adds the two
-sources of another ``csrc`` directory (an older tree's) as one more
+The three run one block routine (``csrc/band_tile.cuh``): K5 and K6 store
+both bands off each tile, K1's f32 route one band in either direction.
+Each ships its register tile and column tile (K5's and K6's
+``ShippedTile``, K1's ``SideTile``). This tool compiles the three sources
+again, all at one other shape -- a thread's columns x disparities (``Bw``
+x ``Bd``) and the block's columns -- by defining ``MCCNN_BAND_TILE_BW``,
+``_BD`` and ``_W`` and renaming the C entry points, one ``nvcc`` per
+source and shape under the build directory, all started together. ``--against DIR`` adds the
+three sources of another ``csrc`` directory (an older tree's) as one more
 variant, "against". The variants are loaded with ``ctypes`` beside the
 port's library, checked against the shipped kernels bit for bit, and timed
-with the shipped kernels (``band_pair``, ``band_pair_scores``) on the same
-operands with CUDA events, in turns (forward through the list, then back).
-The operands are those of the main path: unit descriptors at 1000 x 1504,
-ndisp 200, D_pad 256; K5 in f32 (path T) and bf16, K6 with f32 and bf16
-output. Prints the registers and spills of every variant, a JSON line per
-case as it is timed, then one with every case and the card's name and
-power limit; needs a CUDA device.
+with the shipped kernels (``band_side``, ``band_pair``,
+``band_pair_scores``) on the same operands with CUDA events, in turns
+(forward through the list, then back). The operands are those of the main
+path: unit descriptors at 1000 x 1504, ndisp 200, D_pad 256; K1 in f32 on
+either side (paths E, halfexact), K5 in f32 (path T) and bf16, K6 with f32
+and bf16 output. Prints the registers and spills of every variant, a JSON
+line per case as it is timed, then one with every case and the card's name
+and power limit; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,20 +45,33 @@ from mccnn_tpu_torch.kernels.build import (
     build,
     nvcc,
 )
-from mccnn_tpu_torch.ops.cost_volume import band_pair, band_pair_scores
+from mccnn_tpu_torch.ops.cost_volume import (
+    band_pair,
+    band_pair_scores,
+    band_side,
+)
 
 SHAPE = (1000, 1504)
 NDISP, D_PAD = 200, 256
 REPS = 10
-# label -> (Bw, Bd, block columns); the shipped shape is timed through the
-# port's own wrappers
+# label -> (Bw, Bd, block columns); the shipped shapes (K1's 4 x 16, K5's
+# and K6's 8 x 8, all at 64 columns) are timed through the port's own
+# wrappers, and each is also a variant of the others
 VARIANTS = {
+    "8x8 w64": (8, 8, 64),
     "8x8 w128": (8, 8, 128),
     "8x8 w256": (8, 8, 256),
     "4x8 w32": (4, 8, 32),
     "4x8 w64": (4, 8, 64),
     "8x4 w64": (8, 4, 64),
+    "4x16 w64": (4, 16, 64),
+    "16x4 w128": (16, 4, 128),
 }
+# the sources and their C entries, renamed per variant
+SOURCES = {"band.cu": ("mccnn_band_side", "mccnn_error_string"),
+           "band_pair.cu": ("mccnn_band_pair",),
+           "band_vpu.cu": ("mccnn_band_scores",)}
+_SIDE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _PAIR_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SCORE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -79,14 +95,14 @@ def build_variants(against: Path | None = None) -> tuple[ctypes.CDLL, list]:
     procs, objects, names = [], [], []
     for label, (defines, source_dir) in builds.items():
         tag = _tag(label)
-        for source in ("band_pair.cu", "band_vpu.cu"):
+        for source, entries in SOURCES.items():
             names.append(f"{label} {source}")
             obj = out_dir / f"{source[:-3]}_{tag}.o"
             objects.append(str(obj))
+            renames = [f"-D{entry}={entry[len('mccnn_'):]}_{tag}"
+                       for entry in entries]
             procs.append(subprocess.Popen(
-                [nvcc(), *NVCC_FLAGS, *defines,
-                 f"-Dmccnn_band_pair=band_pair_{tag}",
-                 f"-Dmccnn_band_scores=band_scores_{tag}", "-c", "-o",
+                [nvcc(), *NVCC_FLAGS, *defines, *renames, "-c", "-o",
                  str(obj), str(source_dir / source)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = [proc.communicate()[0] for proc in procs]
@@ -105,6 +121,7 @@ def build_variants(against: Path | None = None) -> tuple[ctypes.CDLL, list]:
     lib = ctypes.CDLL(str(lib_path))
     for label in builds:
         tag = _tag(label)
+        getattr(lib, f"band_side_{tag}").argtypes = _SIDE_ARGS
         getattr(lib, f"band_pair_{tag}").argtypes = _PAIR_ARGS
         getattr(lib, f"band_scores_{tag}").argtypes = _SCORE_ARGS
     return lib, list(builds)
@@ -131,8 +148,9 @@ def _time_ms(fn) -> float:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--against", type=Path, default=None,
-                        help="a csrc directory whose band_pair.cu and "
-                        "band_vpu.cu are timed as one more variant")
+                        help="a csrc directory whose band.cu, "
+                        "band_pair.cu and band_vpu.cu are timed as one more "
+                        "variant")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("time_band_variants needs a CUDA device")
@@ -146,37 +164,38 @@ def main(argv=None) -> dict:
         f /= np.linalg.norm(f, axis=-1, keepdims=True)
         feats.append(torch.from_numpy(f).cuda())
     stream = torch.cuda.current_stream().cuda_stream
+    fl, fr = feats
+    f32, bf16 = torch.float32, torch.bfloat16
+    bl, br = (f.to(bf16) for f in feats)
+    size = (height, width, 64, D_PAD)
     results = {}
-    # (case, K5 storage or None for K6, K6 output type)
-    cases = (("K5 f32", torch.float32, None), ("K5 bf16", torch.bfloat16,
-                                               None),
-             ("K6 f32 out", None, torch.float32),
-             ("K6 bf16 out", None, torch.bfloat16))
-    for case, storage, out_dtype in cases:
-        dtype = storage or out_dtype
-        fl, fr = ((f.to(storage) for f in feats) if storage else feats)
-        outs = [torch.empty((height, width, D_PAD), dtype=dtype,
-                            device="cuda") for _ in "lr"]
-        ptrs = (fl.data_ptr(), fr.data_ptr(), outs[0].data_ptr(),
-                outs[1].data_ptr())
-        bf16 = int(dtype == torch.bfloat16)
-        if storage:
-            fns = {"shipped": functools.partial(band_pair, fl, fr, NDISP,
-                                                D_PAD, storage)}
-            for label in labels:
-                entry = getattr(lib, f"band_pair_{_tag(label)}")
-                fns[label] = functools.partial(
-                    lambda e: _checked(e(*ptrs, height, width, 64, D_PAD,
-                                         NDISP, bf16, stream)), entry)
-        else:
-            fns = {"shipped": functools.partial(band_pair_scores, fl, fr,
-                                                D_PAD, out_dtype)}
-            for label in labels:
-                entry = getattr(lib, f"band_scores_{_tag(label)}")
-                fns[label] = functools.partial(
-                    lambda e: _checked(e(*ptrs, height, width, 64, D_PAD,
-                                         bf16, stream)), entry)
-        want = fns["shipped"]()
+    # case, operands, the shipped call, the entry and its integer arguments
+    cases = (
+        ("K1 f32 left", (fl, fr),
+         lambda: (band_side(fl, fr, NDISP, D_PAD, "left", f32),),
+         "band_side", (*size, NDISP, 0, 0)),
+        ("K1 f32 right", (fr, fl),
+         lambda: (band_side(fr, fl, NDISP, D_PAD, "right", f32),),
+         "band_side", (*size, NDISP, 1, 0)),
+        ("K5 f32", (fl, fr), lambda: band_pair(fl, fr, NDISP, D_PAD, f32),
+         "band_pair", (*size, NDISP, 0)),
+        ("K5 bf16", (bl, br), lambda: band_pair(bl, br, NDISP, D_PAD, bf16),
+         "band_pair", (*size, NDISP, 1)),
+        ("K6 f32 out", (fl, fr), lambda: band_pair_scores(fl, fr, D_PAD),
+         "band_scores", (*size, 0)),
+        ("K6 bf16 out", (fl, fr),
+         lambda: band_pair_scores(fl, fr, D_PAD, bf16), "band_scores",
+         (*size, 1)),
+    )
+    for case, operands, shipped, entry, ints in cases:
+        want = shipped()
+        outs = [torch.empty_like(w) for w in want]
+        ptrs = [t.data_ptr() for t in (*operands, *outs)]
+        fns = {"shipped": shipped}
+        for label in labels:
+            fns[label] = functools.partial(
+                lambda e: _checked(e(*ptrs, *ints, stream)),
+                getattr(lib, f"{entry}_{_tag(label)}"))
         for label, fn in fns.items():
             if label == "shipped":
                 continue

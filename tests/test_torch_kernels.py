@@ -187,6 +187,13 @@ def test_band_kernel_rejects_mismatched_features():
               for _ in "lr")
     with pytest.raises(ValueError):
         tcv.band_side(fl, fr, 10, 128, "left", torch.bfloat16)
+    # either route refuses a pointer off 16 bytes (an offset view); the
+    # kernel's refusal raises instead of taking another route
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.zeros(4 * 40 * 64 + 1, dtype=dtype, device=device)
+        skewed = flat[1:].view(4, 40, 64)
+        with pytest.raises(RuntimeError, match="band_side"):
+            tcv.band_side(skewed, fr.to(dtype), 10, 128, "right", dtype)
 
 
 @pytest.mark.cuda
@@ -346,6 +353,34 @@ def test_band_pair_kernel_at_ragged_tiles(shape, dtype):
         torch.testing.assert_close(ours, exact, rtol=0, atol=0)
         torch.testing.assert_close(ours.float(), reference.float(),
                                    rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("shape", RAGGED_BANDS)
+def test_band_side_f32_kernel_at_ragged_tiles(shape, side):
+    """K1's f32 route (band_tile.cuh, one-sided) at shapes ragged for its
+    tile, on either side: within 1e-5 of the plain version, zeros and pad
+    lanes exact; and the two sides equal K5 f32 bit for bit (the same fmaf
+    chain)."""
+    device = require_card()
+    height, width, ndisp = shape
+    d_pad = -(-ndisp // 128) * 128
+    rng = np.random.default_rng(19)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width)).to(device)
+              for _ in "lr")
+    anchor, other = (fl, fr) if side == "left" else (fr, fl)
+    build.LAUNCHES.reset()
+    got = tcv.band_side(anchor, other, ndisp, d_pad, side, torch.float32)
+    assert _launched() == {"band_side": 1}
+    want = tcv.band_side_plain(anchor, other, ndisp, d_pad, side,
+                               torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    zero = want[..., :ndisp] == 0
+    assert torch.equal(got[..., :ndisp][zero], want[..., :ndisp][zero])
+    assert torch.equal(got[..., ndisp:], want[..., ndisp:])
+    pair = tcv.band_pair(fl, fr, ndisp, d_pad, torch.float32)
+    assert torch.equal(got, pair[side == "right"])
 
 
 @pytest.mark.cuda

@@ -35,8 +35,15 @@ are the model's own copy. One case per distinct piece of arithmetic:
     context window, the band read off its diagonals per 16-row warp tile of
     18 n-tiles. Against ``ops.cost_volume.band_side_plain``: bf16 inputs
     one bf16 ulp, zeros and pad lanes exact; the same offsets on f32 inputs
-    to 1e-5 (another summation order; the kernel's f32 route keeps its
-    earlier tiling and is not modelled).
+    to 1e-5 (another summation order).
+  * K1's f32 route (``csrc/band.cu`` on ``csrc/band_tile.cuh``, one-sided):
+    per (column tile up to ``width``, chunk) the tile of one direction, the
+    right side's context window from ``w0 + d0`` read along anti-diagonals
+    (x = col + dl) by the left side's multiply-add loop with the
+    accumulators' disparities reversed; rows stored only, every element
+    once; the block and per-thread skips; masks at ``width``, ``ndisp`` and
+    ``d_pad``; the pad-chunk fill. Against ``band_side_plain`` on both
+    sides: zeros and pad lanes exact, values to 1e-5.
   * K5 and K6 (``csrc/band_tile.cuh``, the block routine both run): per
     (column tile, 128-disparity chunk) one correlation tile of fL's
     anchor columns and fR's context window, zero outside the image,
@@ -119,8 +126,10 @@ def test_the_models_read_the_kernels_constants():
     assert (K8["kThreads"], K8["kBatch"]) == (256, 16)
     assert (K8["kThreadsF32"], K8["kBatchF32"]) == (512, 32)
     assert K8["kBandRows"] == 2 * K8["kBandH"] == 512
-    assert {"kChannels", "kChunkD", "kMmaTileW"} <= set(K1)
+    assert {"kChannels", "kChunkD", "kMmaTileW", "kSideBw", "kSideBd",
+            "kSideTileW"} <= set(K1)
     assert K1["kChunkD"] == 128 and K1["kMmaTileW"] == 64
+    assert (K1["kSideBw"], K1["kSideBd"], K1["kSideTileW"]) == (4, 16, 64)
     assert {"kChannels", "kChunkD", "kLanes", "kSliceC", "kBw", "kBd",
             "kTileW"} <= set(TILE)
     assert (TILE["kChunkD"], TILE["kLanes"], TILE["kSliceC"]) == (128, 4, 16)
@@ -560,6 +569,28 @@ def test_band_tile_fits_the_block_as_its_note_says():
     # register file at 128 registers a thread
     assert 4 * (shared["f32"] + 1024) <= 228 * 1024
     assert 4 * threads * 128 <= 65536
+    # K1's one-sided tile: the same threads and f32 bytes, as band.cu's
+    # note says
+    side_threads, side_shared, side_tile32, _ = band_tile_shape(
+        *K1_SIDE_TILE)
+    assert (side_threads, side_shared["f32"]) == (threads, shared["f32"])
+    k1_note = (_CSRC / "band.cu").read_text()
+    assert f"{side_threads} threads" in k1_note
+    for value in (side_shared["f32"], side_tile32):
+        assert f"{value:,} bytes" in k1_note
+
+
+def band_tile_lanes(bw, bd, tile_w):
+    """Every thread of a block (warp -> (wc, wd), lane -> (h, p, q)): its
+    first column col0 and first disparity dmin in the block's tile."""
+    lanes = TILE["kLanes"]
+    t = torch.arange(band_tile_shape(bw, bd, tile_w)[0])
+    lane, warp = t % 32, t // 32
+    p, q, h = lane % lanes, lane // lanes % lanes, lane // 16
+    warps_w = tile_w // (2 * lanes * bw)
+    col0 = warp % warps_w * 2 * lanes * bw + h * lanes * bw + p
+    dmin = warp // warps_w * lanes * bd + q
+    return col0, dmin
 
 
 def band_tile_model(fl, fr, depth, compute_end, epilogue, shape=None):
@@ -575,13 +606,7 @@ def band_tile_model(fl, fr, depth, compute_end, epilogue, shape=None):
     a, o = fl.float(), fr.float()
     out = torch.full((2, height, width, depth), float("nan"))
     stores = torch.zeros((2, width, depth), dtype=torch.int64)
-    # every thread of a block: warp -> (wc, wd), lane -> (h, p, q)
-    t = torch.arange(band_tile_shape(bw, bd, tile_w)[0])
-    lane, warp = t % 32, t // 32
-    p, q, h = lane % lanes, lane // lanes % lanes, lane // 16
-    warps_w = tile_w // (2 * lanes * bw)
-    col0 = warp % warps_w * 2 * lanes * bw + h * lanes * bw + p
-    dmin = warp // warps_w * lanes * bd + q
+    col0, dmin = band_tile_lanes(bw, bd, tile_w)
     xb = col0 - dmin + chunk - 1 - lanes * (bd - 1)
     i = torch.arange(bw)[None, :, None]
     j = torch.arange(bd)[None, None, :]
@@ -687,6 +712,114 @@ def test_band_tile_model_equals_plain_k6(size, depth):
     for ours, plain in zip(got, want):
         assert torch.equal(ours[plain == 0], plain[plain == 0])
         torch.testing.assert_close(ours, plain, rtol=0, atol=1e-5)
+
+
+K1_SIDE_TILE = (K1["kSideBw"], K1["kSideBd"], K1["kSideTileW"])
+
+
+def band_side_tile_model(anchor, other, ndisp, d_pad, side, shape=None):
+    """One finalized band as K1's f32 route runs the block routine of
+    ``band_tile.cuh`` one-sided, at ``shape`` = (Bw, Bd, block columns),
+    K1's shipped one by default: per (column tile up to ``width``, chunk)
+    the tile t[w][d] = <anchor(w), other(w - d)> (left) or
+    <anchor(w), other(w + d)> (right), read by one multiply-add loop along
+    its diagonals or anti-diagonals, its rows stored; a chunk of pad lanes
+    only filled with ``BIG_COST`` and nothing staged."""
+    bw, bd, tile_w = shape or K1_SIDE_TILE
+    lanes, chunk = TILE["kLanes"], TILE["kChunkD"]
+    right = side == "right"
+    height, width, _ = anchor.shape
+    a, o = anchor.float(), other.float()
+    out = torch.full((height, width, d_pad), float("nan"))
+    stores = torch.zeros((width, d_pad), dtype=torch.int64)
+    col0, dmin = band_tile_lanes(bw, bd, tile_w)
+    i = torch.arange(bw)[None, :, None]
+    j = torch.arange(bd)[None, None, :]
+    col = (col0[:, None, None] + lanes * i).expand(-1, bw, bd)
+    # accumulator (i, j) holds disparity dmin + 4 j on the left and
+    # dmin + 4 (Bd - 1 - j) on the right; both read context column
+    # xb + 4 (i - j + Bd - 1)
+    dl = (dmin[:, None, None]
+          + lanes * ((bd - 1 - j) if right else j)).expand(-1, bw, bd)
+    xb = col0 + dmin if right else col0 - dmin + chunk - 1 - lanes * (bd - 1)
+    x = xb[:, None, None] + lanes * (i - j + bd - 1)
+    # the context window holds other column w0 + d0 + x on the right (the
+    # anti-diagonal x = col + dl), w0 - d0 - 127 + x on the left
+    assert torch.equal(x, col + dl if right else col - dl + chunk - 1)
+    assert int(x.min()) >= 0 and int(x.max()) < tile_w + chunk - 1
+    cells = torch.zeros((tile_w, chunk), dtype=torch.int64)
+    cells.index_put_((col, dl), torch.ones_like(col), accumulate=True)
+    assert bool((cells == 1).all())  # each tile element once per block
+    rows = torch.arange(tile_w)
+    for d0 in range(0, d_pad, chunk):
+        for w0 in range(0, width, tile_w):  # column tiles up to width only
+            keep = rows[w0 + rows < width]
+            if d0 >= ndisp:  # pad lanes only: the fill, no tile
+                out[:, w0 + keep, d0:d0 + chunk] = BIG_COST
+                stores[w0 + keep, d0:d0 + chunk] += 1
+                continue
+            gw, gd = w0 + col, d0 + dl
+            matched = (gw < width) & ((gw + gd < width) if right
+                                      else (gw >= gd))
+            real = bool((matched & (gd < ndisp)).any())
+            # block-uniform: some output of the tile is a real match
+            assert real == (w0 + d0 < width if right
+                            else w0 + tile_w - 1 >= d0)
+            score = torch.zeros((height, *col.shape))
+            if real:
+                origin = w0 + d0 if right else w0 - d0 - (chunk - 1)
+                tile = torch.zeros((height, tile_w, 64))
+                ctx = torch.zeros((height, tile_w + chunk - 1, 64))
+                cols = w0 + rows
+                tile[:, cols < width] = a[:, cols[cols < width]]
+                cols = origin + torch.arange(tile_w + chunk - 1)
+                ok = (cols >= 0) & (cols < width)
+                ctx[:, ok] = o[:, cols[ok]]
+                score = (tile[:, col] * ctx[:, x]).sum(-1)
+                # a thread skips its sums when its whole tile lies past the
+                # image, past ndisp or out of range: its first column and
+                # disparity (the lowest of each) decide
+                lo_w, lo_d = w0 + col0, d0 + dmin
+                active = (lo_w < width) & (lo_d < ndisp) & (
+                    lo_w + lo_d < width if right
+                    else lo_w + lanes * (bw - 1) >= lo_d)
+                assert not bool((matched & (gd < ndisp))[~active].any())
+                score[:, ~active] = 0.0
+            band = torch.empty((height, tile_w, chunk))
+            band[:, col, dl] = torch.where(
+                gd >= ndisp, BIG_COST, torch.where(matched, -score, 0.0))
+            out[:, w0 + keep, d0:d0 + chunk] = band[:, keep]
+            stores[w0 + keep, d0:d0 + chunk] += 1
+    assert bool((stores == 1).all())  # every band element stored once
+    return out
+
+
+# test_k1_tiling_model_equals_plain_band's shapes on f32 descriptors (a
+# ragged last tile, a full tile, a second chunk partly pad lanes, a width
+# below d_pad with a chunk of pad lanes only), both sides; then K5's tile
+# one-sided on the last
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("size,ndisp,d_pad,shape", [
+    ((7, 70), 5, 128, None),
+    ((6, 64), 64, 128, None),
+    ((3, 200), 200, 256, None),
+    ((7, 70), 5, 256, None),
+    ((7, 70), 5, 256, (8, 8, 64)),
+])
+def test_band_side_tile_model_equals_plain_band(size, ndisp, d_pad, shape,
+                                                side):
+    height, width = size
+    rng = np.random.default_rng(33)
+    fl, fr = (torch.from_numpy(unit_features(rng, height, width))
+              for _ in "lr")
+    anchor, other = (fl, fr) if side == "left" else (fr, fl)
+    got = band_side_tile_model(anchor, other, ndisp, d_pad, side, shape)
+    want = tcv.band_side_plain(anchor, other, ndisp, d_pad, side,
+                               torch.float32)
+    zero = want[..., :ndisp] == 0
+    assert torch.equal(got[..., :ndisp][zero], want[..., :ndisp][zero])
+    assert torch.equal(got[..., ndisp:], want[..., ndisp:])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 def k3_lines(dtype, d_pad):
