@@ -114,15 +114,24 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      1504 scenes for the pipelined and the sync client,
      ``tools.profile_pipeline`` at the main shape, ``tools.profile_fullres``
      at 2000 x 3072, ndisp 400, and ``tools.warmup`` in a process of its own;
-     each prints one JSON record naming this card.
+     each prints one JSON record naming this card;
+ 12. runs the two CBCA layout tools' ``main()`` in this process on their
+     seeded 1000 x 1504 x 256 f32 volume: ``tools.bench_cbca_banded``
+     (``cbca_impl="mxu"``'s dense round, masks built in the call, against
+     the banded-block round: times, peak memory, every element within
+     ``round_tolerance``) and ``tools.bench_cbca_layout`` (the torch-op
+     round in (H, W, D) and in (H, D, W), x1 and x16: times, peak memory,
+     the layouts' two-round difference within ``LAYOUT_RTOL`` of the
+     largest value); every output finite, every line naming this card;
+     then one dense and one banded round profiled (device time by kernel).
 
 Every failed phase raises, so the exit code is non-zero; without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 The last lines are the bench's records (one JSON line each), the
 serving pair's seconds and peak device memory, the
 training summary (both steps/s), the quality summary, the sharded summary,
-the card, the per-kernel JSON summary and ``{"ok": true, "device":
-{...}}``.
+the CBCA tools' line, the card, the per-kernel JSON summary and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -279,6 +288,9 @@ MULTIHOST_SCENES = 3
 BENCH_CONFIGS = ("half", "halfexact", "quarter", "full", "train")
 BENCH_SERVE_SCENES = 16
 FULL_STRIP = (872, 1128)
+# the CBCA layout tools: (H, D, W) against (H, W, D) after two rounds, as
+# tests/test_torch_cbca_tools.py holds cbca_hdw to JAX's cbca
+LAYOUT_RTOL = 1e-6
 # the card's published peaks (H100 SXM data sheet, dense): device memory
 # rate; f32 outside the tensor cores, bf16 and int8 on them
 HBM_BYTES_PER_S = 3.35e12
@@ -2649,6 +2661,64 @@ def drive_bench(device, smi: str, errors: Errors):
     return counts, records
 
 
+def drive_cbca_tools(smi: str) -> str:
+    """Phase 12: ``tools.bench_cbca_banded.main()`` and
+    ``tools.bench_cbca_layout.main()`` in this process; raises on a record
+    of another card, a non-finite output, dense and banded apart by more
+    than ``round_tolerance`` anywhere, or layouts apart by more than
+    ``LAYOUT_RTOL`` of the largest value; then profiles one dense and one
+    banded round on the tools' inputs. Returns the summary line."""
+    import torch
+    from mccnn_tpu_torch.ops.cbca import compute_arms
+    from mccnn_tpu_torch.ops.cbca_mxu import cbca_mxu
+    from mccnn_tpu_torch.tools import bench_cbca_banded, bench_cbca_layout
+
+    records = {}
+    for tool in (bench_cbca_banded, bench_cbca_layout):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        record = tool.main()
+        if record["device"] != smi or not record["finite"]:
+            raise AssertionError(f"{record['tool']}: {record}")
+        log(f"  ({record['tool']}: {time.perf_counter() - t0:.1f} s)")
+        records[record["tool"]] = record
+    banded, layout = (records["bench_cbca_banded"],
+                      records["bench_cbca_layout"])
+    if not banded["within_tolerance"]:
+        raise AssertionError(
+            f"dense and banded apart by {banded['max_abs_diff']}, past the "
+            "per-element tolerance")
+    if not layout["layout_diff"] <= LAYOUT_RTOL * layout["scale"]:
+        raise AssertionError(
+            f"layouts apart by {layout['layout_diff']} at a scale of "
+            f"{layout['scale']}")
+
+    torch.cuda.empty_cache()
+    image, vol = bench_cbca_banded.random_inputs(torch.device("cuda"))
+    dist = bench_cbca_banded.DIST
+    arms = compute_arms(image, bench_cbca_banded.TAU, dist)
+    for label, fn in (
+            ("dense mxu", lambda: cbca_mxu(vol, arms, 1, dist)),
+            ("banded", lambda: bench_cbca_banded.banded_round(vol, arms,
+                                                              dist))):
+        fn()  # warm
+        log(f"  profile of one {label} round:")
+        profiled(fn)
+    del image, vol, arms
+    torch.cuda.empty_cache()
+    return (
+        f"CBCA tools at {' x '.join(map(str, banded['shape']))} f32 [{smi}]:"
+        f" dense mxu x1 {banded['dense_ms']:.2f} ms "
+        f"({banded['dense_peak_gb']:.2f} GB), banded x1 "
+        f"{banded['banded_ms']:.2f} ms ({banded['banded_peak_gb']:.2f} GB), "
+        f"max abs diff {banded['max_abs_diff']} (largest tolerance "
+        f"{banded['largest_tolerance']}); torch ops (H,W,D) x1 "
+        f"{layout['hwd_ms']:.2f} ms ({layout['hwd_peak_gb']:.2f} GB), "
+        f"(H,D,W) x1 {layout['hdw_ms']:.2f} ms ({layout['hdw_peak_gb']:.2f} "
+        f"GB), x16 {layout['hdw_x16_ms']:.2f} ms; layout diff "
+        f"{layout['layout_diff']}")
+
+
 def leaf_errors(got: dict, want: dict) -> dict:
     """Largest |got - want| / max |want| over the leaves of the ``params``
     and ``momentum`` trees; raises past ``TRAIN_REL_TOL``."""
@@ -2765,6 +2835,12 @@ def main() -> int:
     bench_counts, bench_records = drive_bench(device, smi, errors)
     launches.update(bench_counts)
 
+    torch.cuda.empty_cache()
+    phase("tools: bench_cbca_banded and bench_cbca_layout at 1000 x 1504 x "
+          "256")
+    cbca_tools = drive_cbca_tools(smi)
+    log("  " + cbca_tools)
+
     summary = {"kernels": [
         {
             "name": name,
@@ -2803,6 +2879,7 @@ def main() -> int:
         f"{max(r['plain_s_per_pair'] for r in serve):.4f} s/pair, "
         f"{max(r['plain_peak_gb'] for r in serve):.2f} GB); "
         f"{json.dumps(sharded)}")
+    log(cbca_tools)
     log(smi)
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

@@ -3,9 +3,13 @@
 A port of ``mccnn_tpu`` (JAX/XLA/Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for an NVIDIA H100 (``csrc/``, built at first
 use by ``kernels/build.py``). Module names follow ``mccnn_tpu`` so each
-module's counterpart is easy to find. The package imports neither JAX nor
-``mccnn_tpu``: it keeps its own copies of the numpy-only modules (io,
-utils, data.dataset).
+module's counterpart is easy to find, and each package exports the names
+its ``mccnn_tpu`` counterpart exports (``from mccnn_tpu_torch.pipeline
+import match_pair``). The package imports neither JAX nor ``mccnn_tpu``:
+it keeps its own copies of the numpy-only modules (io, utils,
+data.dataset).
 """
 
 __version__ = "0.1.0"
+
+from mccnn_tpu_torch.utils.config import MatchConfig, NetConfig, TrainConfig  # noqa: F401,E402

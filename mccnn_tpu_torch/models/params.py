@@ -4,7 +4,8 @@ The same on-disk layouts as the JAX package, so either package loads the
 other's files: the flat npz of ``save_params`` (``conv{i}/w``,
 ``conv{i}/b``), training checkpoints (``params:conv{i}/w`` keys; optimizer
 slots ignored), the legacy anonymous ``leaf_{i}`` training snapshots and
-the reference's npy dict (``conv{i}/weights:0``). All return the numpy tree
+the reference's npy dict (``conv{i}/weights:0``, written by
+``save_reference_npy_dict``). All return the numpy tree
 ``{"conv{i}": {"w": HWIO, "b": (maps,)}}``; turn it into a network with
 ``net.params_from_numpy``. TF1 checkpoints need tensorflow and are not read
 here: convert them with the JAX package first.
@@ -120,6 +121,17 @@ def load_reference_npy_dict(path: str) -> NumpyParams:
         )
     _validate(params)
     return params
+
+
+def save_reference_npy_dict(params: NumpyParams, path: str) -> None:
+    """Save a params tree as the reference's npy dict (keys
+    ``conv{i}/weights:0``, ``conv{i}/biases:0``), which
+    ``load_reference_npy_dict`` reads back unchanged."""
+    weights_dict = {}
+    for name, layer in params.items():
+        weights_dict[f"{name}/weights:0"] = np.asarray(layer["w"])
+        weights_dict[f"{name}/biases:0"] = np.asarray(layer["b"])
+    np.save(path, weights_dict)
 
 
 def load_any(path: str) -> NumpyParams:

@@ -313,6 +313,18 @@ def sweep(vol_in, vol_out, left_image, right_image, choice, direction,
        codes, col0)
 
 
+def sgm(left_volume: torch.Tensor, right_volume: torch.Tensor,
+        left_image: torch.Tensor, right_image: torch.Tensor, ndisp: int,
+        config: MatchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """4-direction SGM of both (H, W, D) cost volumes (in place in the
+    chained mode, as ``_sgm_one_volume``)."""
+    left_out = _sgm_one_volume(left_volume, left_image, right_image, "L",
+                               ndisp, config)
+    right_out = _sgm_one_volume(right_volume, left_image, right_image, "R",
+                                ndisp, config)
+    return left_out, right_out
+
+
 def _sgm_one_volume(volume: torch.Tensor, left_image: torch.Tensor,
                     right_image: torch.Tensor, choice: str, ndisp: int,
                     config: MatchConfig) -> torch.Tensor:

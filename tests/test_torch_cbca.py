@@ -11,7 +11,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from mccnn_tpu.ops import cbca_fused as jfused  # noqa: E402
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
-from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_fused import cbca_fused  # noqa: E402
 
 from torch_parity import jax_arms as jax_arms_of  # noqa: E402
@@ -19,6 +18,8 @@ from torch_parity import jitted_round, scene_pair  # noqa: E402
 
 # the module, not the function mccnn_tpu.ops re-exports under its name
 jcbca = importlib.import_module("mccnn_tpu.ops.cbca")
+# the module, not the function mccnn_tpu_torch.ops exports under its name
+tcbca = importlib.import_module("mccnn_tpu_torch.ops.cbca")
 # the JAX rounds, each compiled once per shape and static arguments
 jax_cbca = jitted_round(jcbca.cbca)
 jax_cbca_fused = jitted_round(jfused.cbca_fused)

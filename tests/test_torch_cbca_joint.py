@@ -6,6 +6,8 @@ time: rtol 1e-5 against JAX (measured: equal), rtol 1e-4 against the f64
 oracle (the JAX test's own tolerance).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -15,11 +17,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from mccnn_tpu.ops.cbca_joint import cbca_joint  # noqa: E402
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
-from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops import cbca_joint as tjoint  # noqa: E402
 
 from oracles import cross_regions_oracle, joint_cbca_oracle  # noqa: E402
 from torch_parity import jax_arms, jitted_round  # noqa: E402
+
+# the module, not the function mccnn_tpu_torch.ops exports under its name
+tcbca = importlib.import_module("mccnn_tpu_torch.ops.cbca")
 
 # JAX's joint rounds, compiled once per shape and static arguments
 jax_cbca_joint = jitted_round(cbca_joint)

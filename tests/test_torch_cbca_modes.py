@@ -18,7 +18,6 @@ import jax.numpy as jnp  # noqa: E402
 from mccnn_tpu.ops import cbca_fused as jfused  # noqa: E402
 from mccnn_tpu.ops.cbca_pallas import cbca_pallas as jcbca_pallas  # noqa: E402
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
-from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops import cbca_fused as tfused  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_pallas import cbca_pallas  # noqa: E402
 
@@ -26,6 +25,8 @@ from torch_parity import jax_arms, jitted_round, scene_pair  # noqa: E402
 
 # the module, not the function mccnn_tpu.ops re-exports under its name
 jcbca = importlib.import_module("mccnn_tpu.ops.cbca")
+# the module, not the function mccnn_tpu_torch.ops exports under its name
+tcbca = importlib.import_module("mccnn_tpu_torch.ops.cbca")
 # the JAX rounds, each compiled once per shape and static arguments
 jax_cbca = jitted_round(jcbca.cbca)
 jax_cbca_pallas = jitted_round(jcbca_pallas)

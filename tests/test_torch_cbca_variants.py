@@ -32,7 +32,6 @@ from mccnn_tpu.ops import cbca_fused as jfused  # noqa: E402
 from mccnn_tpu.ops import cbca_fused2 as jfused2  # noqa: E402
 from mccnn_tpu.ops import cbca_rolling as jrolling  # noqa: E402
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
-from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_fused import cbca_fused  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_fused2 import cbca_fused_two  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_mxu import build_masks, cbca_mxu  # noqa: E402
@@ -43,6 +42,8 @@ from torch_parity import jax_arms, jitted, jitted_round  # noqa: E402
 # the modules, not the functions mccnn_tpu.ops re-exports under their names
 jcbca = importlib.import_module("mccnn_tpu.ops.cbca")
 jmxu = importlib.import_module("mccnn_tpu.ops.cbca_mxu")
+# the module, not the function mccnn_tpu_torch.ops exports under its name
+tcbca = importlib.import_module("mccnn_tpu_torch.ops.cbca")
 # the JAX kernels (interpret mode) and rounds, each compiled once per shape
 # and static arguments
 jax_cbca_fused = jitted_round(jfused.cbca_fused)

@@ -14,6 +14,7 @@ a tensor that is not on CUDA instead of falling back.
 """
 
 import copy
+import importlib
 import re
 from pathlib import Path
 
@@ -27,9 +28,7 @@ from mccnn_tpu_torch.models.net import (  # noqa: E402
     init_params,
     params_from_numpy,
 )
-from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops import cost_volume as tcv  # noqa: E402
-from mccnn_tpu_torch.ops import sgm as tsgm  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_fused import (  # noqa: E402
     _quantize_int8,
     cbca_fused,
@@ -59,6 +58,10 @@ from mccnn_tpu_torch.utils.config import MatchConfig  # noqa: E402
 
 from chip_smoke import RAGGED_RADII, RAGGED_SHAPES  # noqa: E402
 from torch_parity import require_card, scene_pair, unit_features  # noqa: E402
+
+# the modules, not the functions mccnn_tpu_torch.ops exports under their names
+tcbca = importlib.import_module("mccnn_tpu_torch.ops.cbca")
+tsgm = importlib.import_module("mccnn_tpu_torch.ops.sgm")
 
 NDISP = 70
 TAU, DIST = 0.02, 14

@@ -39,7 +39,8 @@ def test_port_modules_import_without_jax():
                 "parallel.launch", "tools.multiprocess_bringup",
                 "tools.multichip_midscale", "bench", "tools.bench_serve",
                 "tools.profile_pipeline", "tools.profile_fullres",
-                "tools.warmup", "tools.bench_all"):
+                "tools.warmup", "tools.bench_all", "cli.convert",
+                "tools.bench_cbca_banded", "tools.bench_cbca_layout"):
         assert f"mccnn_tpu_torch.{new}" in modules
     assert "mccnn_tpu_torch.shared" not in modules
     code = (
@@ -49,6 +50,8 @@ def test_port_modules_import_without_jax():
         "bad = sorted(m for m in sys.modules if m in ('jax', 'mccnn_tpu') "
         "or m.startswith(('jax.', 'jaxlib', 'mccnn_tpu.')))\n"
         "assert not bad, bad\n"
+        "from mccnn_tpu_torch.kernels import build\n"
+        "assert build.library.cache_info().currsize == 0, 'kernels built'\n"
         "print('ok', len(sys.modules))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

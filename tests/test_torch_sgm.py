@@ -11,13 +11,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu.utils.config import MatchConfig  # noqa: E402
-from mccnn_tpu_torch.ops import sgm as tsgm  # noqa: E402
 
 from torch_parity import jitted, scene_pair  # noqa: E402
 
 jsgm = importlib.import_module("mccnn_tpu.ops.sgm")
+# the module, not the function mccnn_tpu_torch.ops exports under its name
+tsgm = importlib.import_module("mccnn_tpu_torch.ops.sgm")
 # the JAX sweeps of one volume, compiled once per shape and static arguments
 jax_sgm_one_volume = jitted(jsgm._sgm_one_volume, "choice", "ndisp", "config")
+jax_sgm = jitted(jsgm.sgm, "ndisp", "config")
 
 NDISP, D_PAD = 20, 128
 
@@ -108,3 +110,19 @@ def test_chained_mode_updates_in_place(rng):
         torch.from_numpy(right), "R", NDISP, MatchConfig(sgm_paper_mode=True))
     np.testing.assert_array_equal(torch.from_numpy(vol).numpy(), vol)
     assert not torch.equal(paper, out)
+
+
+def test_sgm_of_both_volumes_matches_jax(rng):
+    """``ops.sgm.sgm``: the left volume's sweeps, then the right's."""
+    left, right, vol = _inputs(rng, 12, 24)
+    right_vol = vol[:, ::-1].copy()
+    config = MatchConfig(sgm_chunk=1)
+    want = jax_sgm(jnp.asarray(vol), jnp.asarray(right_vol),
+                   jnp.asarray(left), jnp.asarray(right), NDISP, config)
+    got = tsgm.sgm(torch.from_numpy(vol.copy()),
+                   torch.from_numpy(right_vol.copy()), torch.from_numpy(left),
+                   torch.from_numpy(right), NDISP, config)
+    for port, jax_out in zip(got, want):
+        np.testing.assert_allclose(port.numpy()[..., :NDISP],
+                                   np.asarray(jax_out)[..., :NDISP],
+                                   rtol=1e-5, atol=1e-4)

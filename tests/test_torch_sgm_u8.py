@@ -15,12 +15,13 @@ import jax.numpy as jnp  # noqa: E402
 from mccnn_tpu.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu.ops.sgm_pallas import penalty_scale_u8  # noqa: E402
 from mccnn_tpu.utils.config import MatchConfig as JaxMatchConfig  # noqa: E402
-from mccnn_tpu_torch.ops import sgm as tsgm  # noqa: E402
 from mccnn_tpu_torch.utils.config import MatchConfig  # noqa: E402
 
 from torch_parity import jitted, scene_pair  # noqa: E402
 
 jsgm = importlib.import_module("mccnn_tpu.ops.sgm")
+# the module, not the function mccnn_tpu_torch.ops exports under its name
+tsgm = importlib.import_module("mccnn_tpu_torch.ops.sgm")
 # the JAX functions, each compiled once per shape and static arguments
 jax_penalty_scale_u8 = jitted(penalty_scale_u8, "choice", "direction",
                               "d_pad", "sgm_d")

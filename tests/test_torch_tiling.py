@@ -64,6 +64,7 @@ are the model's own copy. One case per distinct piece of arithmetic:
     tolerance 0.0.
 """
 
+import importlib
 import re
 from pathlib import Path
 
@@ -72,9 +73,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from mccnn_tpu_torch.ops import cbca as tcbca  # noqa: E402
 from mccnn_tpu_torch.ops import cost_volume as tcv  # noqa: E402
-from mccnn_tpu_torch.ops import sgm as tsgm  # noqa: E402
 from mccnn_tpu_torch.ops.cbca_fused import (  # noqa: E402
     cbca_round_int8_plain,
 )
@@ -82,6 +81,10 @@ from mccnn_tpu_torch.ops.common import BIG_COST  # noqa: E402
 from mccnn_tpu_torch.utils.config import MatchConfig  # noqa: E402
 
 from torch_parity import scene_pair, unit_features  # noqa: E402
+
+# the modules, not the functions mccnn_tpu_torch.ops exports under their names
+tcbca = importlib.import_module("mccnn_tpu_torch.ops.cbca")
+tsgm = importlib.import_module("mccnn_tpu_torch.ops.sgm")
 
 _CSRC = Path(tcbca.__file__).resolve().parents[1] / "csrc"
 
