@@ -55,8 +55,9 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      arms, K9 per pass in bf16, f32, with bf16 operands (path V3) and at
      full arms, K4 per 128-lane launch and at full arms, K7 with and
      without its 512-thread lever and K10's floor at the tiling of K2 and
-     K7; K1 per side in bf16 and f32, the f32 route on either side, each
-     also against its plain version; K5 in f32 and bf16 and K6 with f32
+     K7, at 32 x 32 x 8 and at the probe's default tiling; K1 per side in
+     bf16 and f32, the f32 route on either side, each also against its
+     plain version; K5 in f32 and bf16 and K6 with f32
      and bf16 output; K3 in place as the chained path
      launches it, out of place, and in f32), computes each
      kernel's bound from this run's inputs, and profiles one pair;
@@ -250,6 +251,7 @@ OWN_PATH = {
 # 8-lane blocks of K7's first port
 STREAM_TILES = {"K2 and K7": (256, 32, 16), "32 x 32 x 8": (32, 32, 8)}
 STREAM_HALO = 32  # rows (columns) a tile's window adds: radius 16 each side
+STREAM_DEFAULT_TILES = (64, 128, 128)  # the probe's own defaults
 # K2, K7 and K3 where no tile, step, band, ring or block divides the image:
 # (H, W, D_pad); the rounds at each radius below
 RAGGED_SHAPES = ((37, 70, 128), (301, 45, 384))
@@ -1529,6 +1531,20 @@ def main_shape_kernels(device, errors: Errors) -> dict:
     for label, tiles in STREAM_TILES.items():
         pair(f"cbca_stream {label}", lambda t=tiles: cbca_stream(tiled, *t),
              lambda: cbca_stream_plain(tiled), 20, 20)
+    # and at the probe's default tiling, on the volume padded to whole
+    # 128-column tiles as the probe pads it
+    wide = torch.zeros((tiled.shape[0], -(-width // 128) * 128, d_pad),
+                       dtype=dtype, device=device)
+    wide[:, :width] = tiled
+    err = (cbca_stream(wide, *STREAM_DEFAULT_TILES).float()
+           - wide.float()).abs().max()
+    errors.record("cbca_stream", "the probe's default tiles", err.item(),
+                  0.0)
+    pair("cbca_stream default",
+         lambda: cbca_stream(wide, *STREAM_DEFAULT_TILES),
+         lambda: cbca_stream_plain(wide), 20, 20)
+    del wide
+    stream_default = times.pop("cbca_stream default")
     (walk_label, (tile_h, tile_w, _)), (old_label, _) = STREAM_TILES.items()
     stream_old = times.pop(f"cbca_stream {old_label}")
     times["cbca_stream"] = times.pop(f"cbca_stream {walk_label}")
@@ -1537,7 +1553,9 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         library_ms=times["cbca_stream"]["plain_ms"],
         window_bound_ms=1e3 * (reads + 1) * tiled.numel() * 2
         / HBM_BYTES_PER_S,
-        ms_at_32x32x8_tiles=stream_old["ms"])
+        ms_at_32x32x8_tiles=stream_old["ms"],
+        ms_at_default_tiles=stream_default["ms"],
+        plain_ms_at_default_tiles=stream_default["plain_ms"])
     # K3 out of place (the paper mode) and in f32 in place (paths E and
     # T), each the mean of a horizontal and a vertical sweep
     chained32 = vol32.clone()
@@ -1663,7 +1681,11 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         f"{times['cbca_stencil_round']['ms']:.4f} ms (without its lever "
         f"{k2['ms_f32']:.4f}); K10's floor at the tiling of K2 and K7 "
         f"{STREAM_TILES[walk_label]} {times['cbca_stream']['ms']:.4f} ms "
-        f"(window traffic {times['cbca_stream']['window_bound_ms']:.4f}); K1 "
+        f"(window traffic {times['cbca_stream']['window_bound_ms']:.4f}, "
+        f"clone {times['cbca_stream']['library_ms']:.4f}; at the probe's "
+        "default "
+        f"{STREAM_DEFAULT_TILES} "
+        f"{times['cbca_stream']['ms_at_default_tiles']:.4f}); K1 "
         f"per side bf16 {times['band_side']['ms']:.4f}, f32 left "
         f"{times['band_side']['ms_f32']:.4f}, right "
         f"{times['band_side']['ms_f32_right']:.4f} ms; K5 f32 "
@@ -2773,9 +2795,15 @@ def main() -> int:
     phase("build")
     path, seconds = build.build()
     log(f"  kernels built in {seconds:.2f} s -> {os.path.relpath(path, ROOT)}")
+    source = None
     for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "Used" in line or "spill" in line or "Compiling entry" in line:
+        if " -c -o " in line:  # a compile command: its source is last
+            source = os.path.basename(line.split()[-1])
+        elif "Used" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
+            if source == "cbca_stream.cu" and "Used" in line:
+                log("  K10 (cbca_stream.cu, TMA ring, one warp a block): "
+                    + line.split(":", 1)[1].strip())
     build.library()
 
     phase("kernels against their plain versions (256 x 384)")

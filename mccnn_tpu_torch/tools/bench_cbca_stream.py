@@ -4,11 +4,11 @@
 A CBCA round kernel reads a haloed window per output tile and writes the
 tile. ``cbca_stream`` moves a volume through on-chip memory with exactly
 that traffic ((tile_h + 2 x 16) x (tile_w + 2 x 16) x tile_d in, tile_h x
-tile_w x tile_d out, ``csrc/cbca_stream.cu``) and no arithmetic: the output
-equals the input. Its time is the floor for any round kernel with this
-tiling; a round kernel's distance above it is the price of its sums, and
-the floor's distance above bytes / memory rate is the price of the tiling
-itself. ``Tensor.clone()`` is timed beside it as the plain copy.
+tile_w x tile_d out, ``csrc/cbca_stream.cu``, by TMA box copies) and no
+arithmetic: the output equals the input. Its time is the floor for any
+round kernel with this tiling; a round kernel's distance above it is the
+price of its sums, and the floor's distance above bytes / memory rate is
+the price of the tiling itself. ``Tensor.clone()`` is timed beside it as the plain copy.
 
     python -m mccnn_tpu_torch.tools.bench_cbca_stream
 
@@ -57,7 +57,9 @@ def cbca_stream(volume: torch.Tensor, tile_h: int, tile_w: int, tile_d: int,
     windows on CUDA; ``cbca_stream_plain`` on the CPU.
 
     ``volume`` is (H, W, D), or (D / tile_d, H, W, tile_d) with ``dsplit``;
-    H, W and D must be multiples of the tile and hold one haloed window.
+    H, W and D must be multiples of the tile and hold one haloed window, a
+    chunk (tile_d lanes) a multiple of 16 bytes, and the data 16-byte
+    aligned (TMA's copies need all three).
     """
     if volume.device.type == "cpu":
         return cbca_stream_plain(volume)
@@ -78,6 +80,9 @@ def cbca_stream(volume: torch.Tensor, tile_h: int, tile_w: int, tile_d: int,
             f"cbca_stream: {tuple(volume.shape)} does not tile by "
             f"({tile_h}, {tile_w}, {tile_d}) with a {_HALO}-pixel halo and "
             "16-byte chunks")
+    if volume.data_ptr() % 16:
+        raise ValueError("cbca_stream: the volume's data is not 16-byte "
+                         "aligned (a view at an odd storage offset)")
     chunk_bytes = tile_d * itemsize
     if dsplit:
         pixel_stride, chunk_stride = chunk_bytes, height * width * chunk_bytes

@@ -771,14 +771,16 @@ def test_sgm_kernel_on_codes_equals_sgm_on_planes(paper_mode, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
 @pytest.mark.parametrize("tiles", [(32, 32, 8), (32, 32, 128), (64, 128, 128),
-                                   (1, 32, 16)])
+                                   (1, 32, 16), (256, 32, 16), (2, 30, 128)])
 def test_stream_kernel_copies_exactly(tiles, dtype):
-    """K10: the output equals the input in both layouts."""
+    """K10: the output equals the input in both layouts; a view whose data
+    is not 16-byte aligned is refused by the wrapper and by the entry."""
     device = require_card()
     tile_h, tile_w, tile_d = tiles
     if tile_d * torch.empty(0, dtype=dtype).element_size() % 16:
         pytest.skip("a chunk must be a multiple of 16 bytes")
-    height, width, depth = max(2 * tile_h, 96), max(2 * tile_w, 128), 256
+    height, depth = max(2 * tile_h, 96), 256
+    width = -(-max(2 * tile_w, 128) // tile_w) * tile_w
     generator = torch.Generator(device=device).manual_seed(16)
     flat = (torch.randn((height, width, depth), device=device,
                         generator=generator) * 50).to(dtype)
@@ -795,6 +797,40 @@ def test_stream_kernel_copies_exactly(tiles, dtype):
     with pytest.raises(ValueError):  # no whole number of column tiles
         stream.cbca_stream(flat[:, :width - 1].contiguous(), tile_h, tile_w,
                            tile_d)
+    storage = torch.empty(flat.numel() + 1, dtype=dtype, device=device)
+    shifted = storage[1:].view(flat.shape)  # one element off: misaligned
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        stream.cbca_stream(shifted, tile_h, tile_w, tile_d)
+    chunk_bytes = tile_d * flat.element_size()
+    code = build.library().mccnn_cbca_stream(
+        shifted.data_ptr(), torch.empty_like(flat).data_ptr(), height, width,
+        depth // tile_d, tile_h, tile_w, chunk_bytes, depth *
+        flat.element_size(), chunk_bytes, build.stream_handle(flat))
+    assert code == 1  # cudaErrorInvalidValue
+    assert _launched() == {"cbca_stream": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles,shape,dtype", [
+    ((32, 32, 8192), (64, 64, 8192), torch.float32),
+    ((1, 300, 16), (34, 600, 64), torch.bfloat16),
+])
+def test_stream_kernel_copies_wide_boxes(tiles, shape, dtype):
+    """K10 where a box cannot take a whole chunk (32 KB chunks, split into
+    pieces) or a whole centre row (300 columns, past TMA's 256)."""
+    device = require_card()
+    tile_h, tile_w, tile_d = tiles
+    height, width, depth = shape
+    generator = torch.Generator(device=device).manual_seed(17)
+    flat = (torch.randn(shape, device=device, generator=generator) * 50).to(
+        dtype)
+    split = flat.reshape(height, width, depth // tile_d, tile_d).permute(
+        2, 0, 1, 3).contiguous()
+    build.LAUNCHES.reset()
+    assert torch.equal(stream.cbca_stream(flat, *tiles), flat)
+    assert torch.equal(stream.cbca_stream(split, *tiles, dsplit=True), split)
+    assert _launched() == {"cbca_stream": 2}
 
 
 @pytest.mark.cuda

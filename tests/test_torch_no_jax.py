@@ -40,7 +40,8 @@ def test_port_modules_import_without_jax():
                 "tools.multichip_midscale", "bench", "tools.bench_serve",
                 "tools.profile_pipeline", "tools.profile_fullres",
                 "tools.warmup", "tools.bench_all", "cli.convert",
-                "tools.bench_cbca_banded", "tools.bench_cbca_layout"):
+                "tools.bench_cbca_banded", "tools.bench_cbca_layout",
+                "tools.time_stream_variants"):
         assert f"mccnn_tpu_torch.{new}" in modules
     assert "mccnn_tpu_torch.shared" not in modules
     code = (

@@ -1,5 +1,5 @@
 """Torch models of the index arithmetic of kernels K2, K7, K8, K4, K9, K1,
-K5, K6 and K3, on the CPU.
+K5, K6, K3 and K10, on the CPU.
 
 The CUDA kernels run only on a card, and only there are they held against
 their plain versions (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
@@ -62,6 +62,13 @@ are the model's own copy. One case per distinct piece of arithmetic:
     window of the padded D2 plane (``ops.sgm.kernel_planes``) at both image
     edges, the D1 chunk, the code line. Against ``ops.sgm.sweep_plain``,
     tolerance 0.0.
+  * K10 (``csrc/cbca_stream.cu``): each block's window cut into TMA boxes
+    (bands of rows wholly in the halo or the centre, halo boxes clamped
+    into the window, centre boxes, a chunk's pieces), every box within
+    TMA's limits and a ring slot, the ring of slots in the kernel's order
+    (which use of a slot a wait names, no refill before the store that
+    reads the slot has read it), every window word read and every output
+    word written once. Against ``Tensor.clone()``, tolerance 0.0.
 """
 
 import importlib
@@ -138,6 +145,9 @@ def test_the_models_read_the_kernels_constants():
     assert (TILE["kChunkD"], TILE["kLanes"], TILE["kSliceC"]) == (128, 4, 16)
     assert (TILE["kBw"], TILE["kBd"], TILE["kTileW"]) == (8, 8, 64)
     assert {"kRingBytes", "kMaxLines", "kMinLines", "kChunk"} <= set(K3)
+    assert {"kHalo", "kThreads", "kStages", "kSlotBytes", "kPromotion",
+            "kRowRuns", "kMaxBox", "kWord", "kSlotAlign", "kPiece"} <= set(K10)
+    assert (K10["kHalo"], K10["kThreads"], K10["kMaxBox"]) == (16, 32, 256)
 
 
 def _gated_sum(line, centre0, count, neg, pos, radius_r):
@@ -972,3 +982,252 @@ def test_k3_ring_model_equals_plain_sweep(shape, dtype, mode):
             for line in writes:
                 assert events.index(("read", line)) < events.index(
                     ("write", line))
+
+
+K10 = _constants("cbca_stream.cu")
+MAX_SHARED = _constants("common.cuh")["kMaxSharedBytes"]
+TMA_TX_LIMIT = 2 ** 20 - 1  # bytes an mbarrier phase can count
+
+
+def _divisor_at_most(n, cap, step=1):
+    """The largest divisor of n up to cap that is a multiple of step."""
+    d = min(n, cap) // step * step
+    while d > step:
+        if n % d == 0:
+            return d
+        d -= step
+    return step
+
+
+def k10_plan(height, width, tile_h, tile_w, chunk_bytes, one_chunk_pixels):
+    """K10's boxes for one launch (``make_plan`` and the entry in
+    ``csrc/cbca_stream.cu``): rows, centre and halo columns, the words of a
+    piece and the pieces of a box along a chunk, and whether a box's columns
+    share its first dimension with the chunk's words (row runs: a pixel is
+    one chunk, dsplit or flat with one chunk)."""
+    word, max_box, halo = K10["kWord"], K10["kMaxBox"], K10["kHalo"]
+    words = chunk_bytes // word
+    row_runs = (bool(K10["kRowRuns"]) and one_chunk_pixels
+                and words <= max_box)
+    piece_words = words if row_runs else _divisor_at_most(
+        words, max_box, K10["kPiece"] // word)
+    chunk_pieces = words // piece_words
+    col_cap = max_box // words if row_runs else max_box
+    rows = int(np.gcd(tile_h, halo))
+    centre = _divisor_at_most(tile_w, col_cap)
+    halo_cols = min(halo, col_cap)
+    pieces = _divisor_at_most(chunk_pieces, max_box)
+
+    def nbytes(cols):
+        return word * piece_words * pieces * cols * rows
+
+    while max(nbytes(centre), nbytes(halo_cols)) > K10["kSlotBytes"]:
+        if rows > 1:
+            rows //= 2
+        elif centre > 1 and centre >= halo_cols:
+            centre = _divisor_at_most(tile_w, centre - 1)
+        elif halo_cols > 1:
+            halo_cols //= 2
+        elif pieces > 1:
+            pieces = _divisor_at_most(chunk_pieces, pieces - 1)
+        else:
+            break
+    align = K10["kSlotAlign"]
+    slot = -(-max(nbytes(centre), nbytes(halo_cols)) // align) * align
+    return {"rows": rows, "centre_cols": centre, "halo_cols": halo_cols,
+            "row_runs": row_runs, "piece_words": piece_words,
+            "pieces": pieces,
+            "chunk_pieces": chunk_pieces, "centre_bytes": nbytes(centre),
+            "halo_bytes": nbytes(halo_cols), "slot_bytes": slot}
+
+
+def k10_boxes(plan, height, width, tile_h, tile_w, col0, row0):
+    """One block's boxes in the kernel's order, as (piece offset in the
+    chunk, x, y, centre, stored), and the block's window."""
+    halo = K10["kHalo"]
+    span_h, span_w = tile_h + 2 * halo, tile_w + 2 * halo
+    col_base = min(max(col0 - halo, 0), width - span_w)
+    row_base = min(max(row0 - halo, 0), height - span_h)
+    col_end = col_base + span_w
+    hc, cc = plan["halo_cols"], plan["centre_cols"]
+    n_left = -(-(col0 - col_base) // hc)
+    n_centre = tile_w // cc
+    n_cols = n_left + n_centre + -(-(col_end - col0 - tile_w) // hc)
+    boxes = []
+    for band in range(span_h // plan["rows"]):
+        y = row_base + band * plan["rows"]
+        for col in range(n_cols):
+            centre = n_left <= col < n_left + n_centre
+            if col < n_left:
+                x = max(min(col_base + col * hc, col0 - hc), col_base)
+            elif centre:
+                x = col0 + (col - n_left) * cc
+            else:
+                x = min(col0 + tile_w + (col - n_left - n_centre) * hc,
+                        col_end - hc)
+            stored = centre and row0 <= y < row0 + tile_h
+            for i in range(plan["chunk_pieces"] // plan["pieces"]):
+                boxes.append((i * plan["pieces"], x, y, centre, stored))
+    return boxes, (row_base, col_base, span_h, span_w)
+
+
+def k10_model(volume, tile_h, tile_w, tile_d, dsplit=False):
+    """K10 on the CPU, box by box: each block's boxes go through a ring of
+    kStages slots in the kernel's order and its centre boxes come back out.
+    Asserts TMA's limits on every box, the shared-memory budget, that the
+    ring never refills a slot a store has yet to read, that every window
+    word is read and none outside it, and that every output word is written
+    once. Returns the output and the bytes the boxes read."""
+    if dsplit:
+        n_chunks, height, width, _ = volume.shape
+    else:
+        height, width, depth = volume.shape
+        n_chunks = depth // tile_d
+    chunk_bytes = tile_d * volume.element_size()
+    plan = k10_plan(height, width, tile_h, tile_w, chunk_bytes,
+                    dsplit or n_chunks == 1)
+    pw, stages = plan["piece_words"], K10["kStages"]
+    # the maps' five dimensions, outermost first: (chunks, H, W, pieces,
+    # words of a piece); flat keeps every chunk's pieces in dimension 1
+    words = volume.contiguous().view(torch.int32).numpy()
+    grid = words.reshape(n_chunks if dsplit else 1, height, width, -1, pw)
+    out = np.zeros_like(grid)
+    written = np.zeros(grid.shape[:4], dtype=np.int64)
+    assert (pw * K10["kWord"]) % 16 == 0 and pw <= K10["kMaxBox"]
+    assert stages >= 3
+    assert stages * K10["kSlotBytes"] + K10["kSlotAlign"] <= MAX_SHARED
+    for key in ("centre", "halo"):
+        cols = plan[f"{key}_cols"]
+        # the box's first dimension: a piece's words, or in row runs the
+        # columns' chunks
+        inner = cols * pw if plan["row_runs"] else pw
+        assert inner <= K10["kMaxBox"] and (inner * K10["kWord"]) % 16 == 0
+        assert max(plan["rows"], cols, plan["pieces"]) <= K10["kMaxBox"]
+        assert plan[f"{key}_bytes"] <= min(plan["slot_bytes"],
+                                           K10["kSlotBytes"], TMA_TX_LIMIT)
+    read = 0
+    for ty in range(height // tile_h):
+        for tx in range(width // tile_w):
+            for chunk in range(n_chunks):  # the fastest grid index
+                c4 = chunk if dsplit else 0
+                p0 = 0 if dsplit else chunk * plan["chunk_pieces"]
+                boxes, (r0, c0, span_h, span_w) = k10_boxes(
+                    plan, height, width, tile_h, tile_w, tx * tile_w,
+                    ty * tile_h)
+                seen = np.zeros((span_h, span_w, plan["chunk_pieces"]),
+                                dtype=bool)
+                slots, armed, pending = [None] * stages, [0] * stages, []
+
+                def issue(n):
+                    piece, x, y, centre, _ = boxes[n]
+                    cols = plan["centre_cols" if centre else "halo_cols"]
+                    assert 0 <= y and y + plan["rows"] <= height
+                    assert 0 <= x and x + cols <= width
+                    assert r0 <= y and y + plan["rows"] <= r0 + span_h
+                    assert c0 <= x and x + cols <= c0 + span_w
+                    assert piece + plan["pieces"] <= plan["chunk_pieces"]
+                    slot = n % stages
+                    assert all(m % stages != slot for m in pending)
+                    armed[slot] += 1
+                    ys = slice(y, y + plan["rows"])
+                    xs = slice(x, x + cols)
+                    ps = slice(p0 + piece, p0 + piece + plan["pieces"])
+                    slots[slot] = (n, grid[c4, ys, xs, ps].copy())
+                    seen[y - r0:y - r0 + plan["rows"], x - c0:x - c0 + cols,
+                         piece:piece + plan["pieces"]] = True
+                    return slots[slot][1].nbytes
+
+                for n in range(min(stages, len(boxes))):
+                    read += issue(n)
+                stored_last = False
+                for n, (piece, x, y, centre, stored) in enumerate(boxes):
+                    slot = n % stages
+                    # the wait's parity names this use of the slot
+                    assert armed[slot] == n // stages + 1
+                    assert slots[slot][0] == n
+                    if stored:
+                        index = (c4, slice(y, y + plan["rows"]),
+                                 slice(x, x + plan["centre_cols"]),
+                                 slice(p0 + piece,
+                                       p0 + piece + plan["pieces"]))
+                        out[index] = slots[slot][1]
+                        written[index] += 1
+                        pending.append(n)
+                    if n > 0 and n - 1 + stages < len(boxes):
+                        if stored_last:  # wait_group.read 1 or 0
+                            pending = pending[-1:] if stored else []
+                        read += issue(n - 1 + stages)
+                    stored_last = stored
+                assert seen.all()
+    assert (written == 1).all()
+    result = torch.from_numpy(out.reshape(words.shape)).view(volume.dtype)
+    return result.reshape(volume.shape), read, plan
+
+
+def _k10_volume(height, width, depth, tile_d, dtype, dsplit, seed=16):
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(
+        rng.integers(-100, 100, (height, width, depth)).astype(np.float32))
+    flat = flat.to(dtype)
+    if not dsplit:
+        return flat
+    return flat.reshape(height, width, depth // tile_d, tile_d).permute(
+        2, 0, 1, 3).contiguous()
+
+
+# the card tests' tilings, the wrapper's CPU dispatch tiling (2, 30, 128),
+# chip_smoke.py's STREAM_TILES (K2's 256 x 32 x 16 among them), windows
+# clamped at both edges of a two-tile volume ((32, 32, 8) at 64 x 64) and
+# at offsets that are no multiple of 16 ((8, 8, 16) at 48 x 48)
+@pytest.mark.parametrize("tiles,shape,dtype", [
+    ((32, 32, 8), (64, 64, 16), torch.bfloat16),
+    ((32, 32, 128), (96, 96, 128), torch.float32),
+    ((64, 128, 128), (128, 256, 128), torch.bfloat16),
+    ((1, 32, 16), (34, 64, 16), torch.int8),
+    ((2, 30, 128), (36, 90, 128), torch.bfloat16),
+    ((256, 32, 16), (768, 64, 32), torch.bfloat16),
+    ((8, 8, 16), (48, 48, 16), torch.bfloat16),
+])
+@pytest.mark.parametrize("dsplit", [False, True])
+def test_k10_box_model_equals_clone(tiles, shape, dtype, dsplit):
+    tile_h, tile_w, tile_d = tiles
+    volume = _k10_volume(*shape, tile_d, dtype, dsplit)
+    got, read, plan = k10_model(volume, *tiles, dsplit)
+    torch.testing.assert_close(got, volume.clone(), rtol=0, atol=0)
+    # the window's bytes, and more only where a halo box overlaps the
+    # centre (an offset that is no multiple of the halo box)
+    span = (tile_h + 32) * (tile_w + 32)
+    blocks = volume.numel() // (tile_h * tile_w * tile_d)
+    window = blocks * span * tile_d * volume.element_size()
+    if tiles == (8, 8, 16):
+        assert read > window
+    else:
+        assert read == window
+    if tiles == (256, 32, 16):  # K2's tiling: 16-row bands, no box shrunk
+        assert (plan["rows"], plan["centre_cols"], plan["halo_cols"]) == (
+            16, 32, 16)
+        assert plan["row_runs"] == dsplit  # 1 KB runs, or 32 bytes
+
+
+@pytest.mark.parametrize("tiles,chunk_bytes", [
+    ((256, 32, 16), 32), ((64, 128, 128), 256), ((32, 32, 512), 2048),
+    ((1, 1, 8192), 32768), ((3, 300, 16), 64)])
+@pytest.mark.parametrize("one_chunk_pixels", [False, True])
+def test_k10_plan_keeps_tma_limits(tiles, chunk_bytes, one_chunk_pixels):
+    """Chunks past 1 KB split into pieces, tiles past 256 columns into
+    centre boxes, and every box fits a slot."""
+    tile_h, tile_w, _ = tiles
+    plan = k10_plan(tile_h + 32, tile_w + 32, tile_h, tile_w, chunk_bytes,
+                    one_chunk_pixels)
+    inner = plan["piece_words"] * (
+        max(plan["centre_cols"], plan["halo_cols"]) if plan["row_runs"]
+        else 1)
+    assert inner <= K10["kMaxBox"]
+    assert plan["piece_words"] <= K10["kMaxBox"]
+    assert plan["piece_words"] * plan["chunk_pieces"] * 4 == chunk_bytes
+    assert plan["chunk_pieces"] % plan["pieces"] == 0
+    assert tile_w % plan["centre_cols"] == 0
+    assert (tile_h % plan["rows"], 16 % plan["rows"]) == (0, 0)
+    assert max(plan["centre_bytes"], plan["halo_bytes"]) <= K10["kSlotBytes"]
+    assert max(plan["rows"], plan["centre_cols"], plan["halo_cols"],
+               plan["pieces"]) <= K10["kMaxBox"]
