@@ -10,6 +10,14 @@ it keeps its own copies of the numpy-only modules (io, utils,
 data.dataset).
 """
 
+import time as _time
+
+_start = _time.perf_counter()
+
 __version__ = "0.1.0"
 
 from mccnn_tpu_torch.utils.config import MatchConfig, NetConfig, TrainConfig  # noqa: F401,E402
+from mccnn_tpu_torch.utils import tracing as _tracing  # noqa: E402
+
+_tracing.add("setup.import", _start, _time.perf_counter())
+del _start, _time, _tracing

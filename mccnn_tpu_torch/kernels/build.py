@@ -31,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from mccnn_tpu_torch.utils import tracing
+
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
 _CHECKOUT = Path(__file__).resolve().parents[2]
 # a checkout has setup.py beside the package; site-packages does not
@@ -121,8 +123,14 @@ def build() -> tuple[Path, float]:
 
     Returns the library path and the seconds spent compiling (0.0 when
     reused). The library is written to a temporary name and renamed, so
-    concurrent builds never load a half-written file.
+    concurrent builds never load a half-written file. The call is the set-up
+    span ``setup.library``.
     """
+    with tracing.setup_span("library"):
+        return _build()
+
+
+def _build() -> tuple[Path, float]:
     target = library_path()
     if target.exists():
         return target, 0.0
@@ -159,16 +167,18 @@ def build() -> tuple[Path, float]:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first call)."""
+    """The loaded kernel library (built at first call). Loading it is the
+    set-up span ``setup.load``, after ``build``'s ``setup.library``."""
     path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.mccnn_error_string.argtypes = [ctypes.c_int]
-    lib.mccnn_error_string.restype = ctypes.c_char_p
-    return lib
+    with tracing.setup_span("load"):
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.mccnn_error_string.argtypes = [ctypes.c_int]
+        lib.mccnn_error_string.restype = ctypes.c_char_p
+        return lib
 
 
 def check(code: int, what: str) -> None:

@@ -26,6 +26,15 @@ for a CUDA tensor.
 f32 convolutions and matrix products must not run in TF32 on the card
 (cuDNN allows it by default), so ``match_pair`` switches TF32 off for
 cuDNN and cuBLAS before it runs.
+
+While tracing is on (``utils/tracing.py``: a torch profiler recording, or
+``tracing.enable()``), ``match_pair`` records a span for each stage:
+``features``, ``cost_volume`` (the band and its border fills), ``cbca``
+(the arms and one CBCA stage, chunk copies included), ``sgm`` and
+``post`` (the WTAs, the LR check, subpixel and both filters), the volume
+stages once a side, inside ``MatchPipeline``'s ``dispatch`` span beside
+``copy_in``; ``fetch`` records ``copy_out``. The set-up spans are recorded
+always.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from mccnn_tpu_torch.ops.lr_check import lr_consistency_interpolate
 from mccnn_tpu_torch.ops.sgm import _sgm_one_volume
 from mccnn_tpu_torch.ops.subpixel import subpixel_enhance
 from mccnn_tpu_torch.ops.wta import wta_disparity
+from mccnn_tpu_torch.utils import tracing
 from mccnn_tpu_torch.utils.config import MatchConfig
 
 _VOLUME_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -221,41 +231,46 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
         lambda volume: rows.gather(wta_disparity(volume)))
 
     with torch.no_grad():
-        features_left = extract_features(net, left_image)
-        features_right = extract_features(net, right_image)
-        if band_kernels and vdtype == torch.bfloat16:
-            features_left = features_left.to(torch.bfloat16)
-            features_right = features_right.to(torch.bfloat16)
+        with tracing.span("features"):
+            features_left = extract_features(net, left_image)
+            features_right = extract_features(net, right_image)
+            if band_kernels and vdtype == torch.bfloat16:
+                features_left = features_left.to(torch.bfloat16)
+                features_right = features_right.to(torch.bfloat16)
 
         def process(volume: torch.Tensor, image: torch.Tensor,
                     choice: str) -> torch.Tensor:
             """CBCA -> SGM -> CBCA for one volume."""
-            arms = compute_arms(image, config.cbca_intensity, distance)
-            if cbca_fn is not None:
-                def run(volume, iterations):
-                    return cbca_fn(volume, arms, iterations)
-            elif config.cbca_joint_regions:
-                other = right_image if choice == "L" else left_image
-                arms_other = compute_arms(other, config.cbca_intensity,
-                                          distance)
-                joint = cbca_joint if cbca_joint_fn is None else cbca_joint_fn
+            with tracing.span("cbca"):
+                arms = compute_arms(image, config.cbca_intensity, distance)
+                if cbca_fn is not None:
+                    def run(volume, iterations):
+                        return cbca_fn(volume, arms, iterations)
+                elif config.cbca_joint_regions:
+                    other = right_image if choice == "L" else left_image
+                    arms_other = compute_arms(other, config.cbca_intensity,
+                                              distance)
+                    joint = (cbca_joint if cbca_joint_fn is None
+                             else cbca_joint_fn)
 
-                def run(volume, iterations):
-                    return joint(volume, arms, arms_other, iterations,
-                                 distance, ndisp, choice)
-            else:
-                # the "mxu" mask stacks serve both CBCA stages of a volume
-                kwargs = ({"masks": build_masks(arms)}
-                          if cbca_impl == "mxu" else {})
+                    def run(volume, iterations):
+                        return joint(volume, arms, arms_other, iterations,
+                                     distance, ndisp, choice)
+                else:
+                    # the "mxu" mask stacks serve both CBCA stages of a volume
+                    kwargs = ({"masks": build_masks(arms)}
+                              if cbca_impl == "mxu" else {})
 
-                def run(volume, iterations):
-                    return _run_cbca(aggregate, volume, arms, iterations,
-                                     distance, cbca_chunk_d, **kwargs)
+                    def run(volume, iterations):
+                        return _run_cbca(aggregate, volume, arms, iterations,
+                                         distance, cbca_chunk_d, **kwargs)
 
-            volume = run(volume, config.cbca_num_iterations_1)
-            volume = sgm_fn(volume, left_image, right_image, choice, ndisp,
-                            config)
-            return run(volume, config.cbca_num_iterations_2)
+                volume = run(volume, config.cbca_num_iterations_1)
+            with tracing.span("sgm"):
+                volume = sgm_fn(volume, left_image, right_image, choice,
+                                ndisp, config)
+            with tracing.span("cbca"):
+                return run(volume, config.cbca_num_iterations_2)
 
         if band_kernels or cost_volume_fn is not None:
             if cost_volume_fn is None:
@@ -263,31 +278,38 @@ def match_pair(net: FeatureNet, left_image: torch.Tensor,
                     return cost_volume_pair(fl, fr, ndisp, sides=sides,
                                             dtype=vdtype)
 
-            right_volume = process(
-                cost_volume_fn(features_left, features_right, "right"),
-                right_image, "R")
-            right_disparity = wta(right_volume)
+            def build(sides):
+                # no name holds the raw volume while ``process`` runs
+                with tracing.span("cost_volume"):
+                    return cost_volume_fn(features_left, features_right,
+                                          sides)
+
+            right_volume = process(build("right"), right_image, "R")
+            with tracing.span("post"):
+                right_disparity = wta(right_volume)
             if not return_volumes:
                 del right_volume  # free it before the left volume is built
-            left_volume = process(
-                cost_volume_fn(features_left, features_right, "left"),
-                left_image, "L")
-            left_disparity = wta(left_volume)
+            left_volume = process(build("left"), left_image, "L")
+            with tracing.span("post"):
+                left_disparity = wta(left_volume)
         else:
-            left_volume, right_volume = cost_volume_pair(
-                features_left, features_right, ndisp, dtype=vdtype,
-                method=cost_volume_method)
+            with tracing.span("cost_volume"):
+                left_volume, right_volume = cost_volume_pair(
+                    features_left, features_right, ndisp, dtype=vdtype,
+                    method=cost_volume_method)
             left_volume = process(left_volume, left_image, "L")
             right_volume = process(right_volume, right_image, "R")
-            left_disparity = wta(left_volume)
-            right_disparity = wta(right_volume)
+            with tracing.span("post"):
+                left_disparity = wta(left_volume)
+                right_disparity = wta(right_volume)
 
-        state = {"left": left_image, "left_volume": left_volume,
-                 "left_disparity": left_disparity,
-                 "right_disparity": right_disparity}
-        for _, stage in _post_stages(ndisp, config, rows):
-            state = stage(state)
-        disparity = state["disparity"]
+        with tracing.span("post"):
+            state = {"left": left_image, "left_volume": left_volume,
+                     "left_disparity": left_disparity,
+                     "right_disparity": right_disparity}
+            for _, stage in _post_stages(ndisp, config, rows):
+                state = stage(state)
+            disparity = state["disparity"]
     if return_volumes:
         return {
             "disparity": disparity,
@@ -381,15 +403,17 @@ class MatchPipeline:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is "
                                "not available")
-        net = params if isinstance(params, FeatureNet) else (
-            params_from_numpy(params))
-        self.net = net.to(self.device)
+        with tracing.setup_span("pipeline"):
+            net = params if isinstance(params, FeatureNet) else (
+                params_from_numpy(params))
+            self.net = net.to(self.device)
         self.config = config
         self.bucket = bucket
         self.volume_dtype = volume_dtype
         self.cbca_impl = cbca_impl
         self.cbca_chunk_d = cbca_chunk_d
         self.cost_volume_method = cost_volume_method
+        self._shapes = set()  # (height, width, ndisp) of the buckets met
 
     def _bucketed(self, size: int) -> int:
         return -(-size // self.bucket) * self.bucket
@@ -399,16 +423,31 @@ class MatchPipeline:
         """Pad, copy in and enqueue the pipeline; no device sync.
 
         Pair with ``fetch``: the serve loop dispatches scene N, then writes
-        scene N-1's artifacts while N runs on the card.
+        scene N-1's artifacts while N runs on the card. The handle carries
+        the pair's id for the spans of ``utils/tracing.py`` and whether the
+        pair is its bucket shape's first: that pair's dispatch and fetch are
+        each a ``setup.first_pair`` span (the caller's time between them is
+        not).
         """
-        left, right = self._padded_on_device(left_image, right_image)
-        out = match_pair(
-            self.net, left, right, ndisp, self.config,
-            volume_dtype=self.volume_dtype, cbca_impl=self.cbca_impl,
-            cbca_chunk_d=self.cbca_chunk_d,
-            cost_volume_method=self.cost_volume_method,
-        )
-        return out, left_image.shape
+        shape = (self._bucketed(left_image.shape[0]),
+                 self._bucketed(left_image.shape[1]), ndisp)
+        first = shape not in self._shapes
+        if first:
+            self._shapes.add(shape)
+            start = time.perf_counter()
+        pair = tracing.new_pair()
+        with tracing.span("dispatch", pair):
+            with tracing.span("copy_in"):
+                left, right = self._padded_on_device(left_image, right_image)
+            out = match_pair(
+                self.net, left, right, ndisp, self.config,
+                volume_dtype=self.volume_dtype, cbca_impl=self.cbca_impl,
+                cbca_chunk_d=self.cbca_chunk_d,
+                cost_volume_method=self.cost_volume_method,
+            )
+        if first:
+            tracing.add("setup.first_pair", start, time.perf_counter(), pair)
+        return out, left_image.shape, pair, first
 
     def _padded_on_device(self, left_image: np.ndarray,
                           right_image: np.ndarray):
@@ -436,8 +475,15 @@ class MatchPipeline:
     @staticmethod
     def fetch(handle) -> np.ndarray:
         """Copy the result to the host (waits for the device) and crop."""
-        out, (height, width) = handle
-        return out.cpu().numpy()[:height, :width]
+        out, (height, width), pair, first = handle
+        if first:
+            start = time.perf_counter()
+        with tracing.span("copy_out", pair):
+            disparity = out.cpu().numpy()[:height, :width]
+        tracing.resolve()
+        if first:
+            tracing.add("setup.first_pair", start, time.perf_counter(), pair)
+        return disparity
 
     def __call__(self, left_image: np.ndarray, right_image: np.ndarray,
                  ndisp: int) -> np.ndarray:

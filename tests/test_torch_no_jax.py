@@ -41,7 +41,7 @@ def test_port_modules_import_without_jax():
                 "tools.profile_pipeline", "tools.profile_fullres",
                 "tools.warmup", "tools.bench_all", "cli.convert",
                 "tools.bench_cbca_banded", "tools.bench_cbca_layout",
-                "tools.time_stream_variants"):
+                "tools.time_stream_variants", "utils.tracing"):
         assert f"mccnn_tpu_torch.{new}" in modules
     assert "mccnn_tpu_torch.shared" not in modules
     code = (
