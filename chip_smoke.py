@@ -6,7 +6,7 @@
 Run from the checkout root on a machine with one NVIDIA H100. It
 
   1. prints the card (nvidia-smi name and power limit) and the versions;
-  2. builds the ten CUDA kernels from ``mccnn_tpu_torch/csrc`` (timed; one
+  2. builds the eleven CUDA kernels from ``mccnn_tpu_torch/csrc`` (timed; one
      nvcc per source, started together);
   3. holds each kernel against its plain PyTorch version on the card at a
      middle shape (256 x 384, ndisp 64 and 200; K1-K3 and K5 in f32 and
@@ -21,12 +21,14 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      against its plain version, K5 in f32 against two K1 launches, in bf16
      against the f32 launch rounded, -K6 against K5 and K6's bf16
      output against its f32 output rounded, all at 0.0, each against its
-     plain version; K10's output against its input in both layouts);
+     plain version; K10's output against its input in both layouts; K11,
+     the border fills, on both sides' K1 bands against the torch-op loop
+     bit for bit);
   4. drives the serving path -- ``MatchPipeline.dispatch``/``fetch`` at
      1000 x 1504, ndisp 200, bf16 volumes, paper-default MatchConfig, the
      fast MC-CNN at full width with seeded random weights -- on one
      synthetic scene, checks the output and the kernel launch counts
-     (per pair: K1 2, K2 36, K3 8), and prints seconds per pair;
+     (per pair: K1 2, K11 2, K2 36, K3 8), and prints seconds per pair;
   5. drives the batch matcher: one synthetic scene of that size written to
      a temporary Middlebury layout, then ``mccnn_tpu_torch.cli.match.main``
      three times in this process -- the exact-f32 schedule
@@ -49,7 +51,9 @@ Run from the checkout root on a machine with one NVIDIA H100. It
      (where every wrapper runs its plain version), in f32 and bf16 and with
      ``cbca_impl`` fused16, rolling16 and mxu and with joint regions;
   7. holds each kernel against its plain version at the main-path shapes
-     (1000 x 1504 x 256), times both with CUDA events (K2 per round in
+     (1000 x 1504 x 256), times both with CUDA events (K11 a side beside
+     the torch-op loop's events, host enqueue and kernel time, and at the
+     full config's 2048 x 3072 x 512; K2 per round in
      bf16, f32, with bf16 operands and with every arm at the radius, beside
      K8 in bf16, f32, with bf16 operands (path V4's launch) and at full
      arms, K9 per pass in bf16, f32, with bf16 operands (path V3) and at
@@ -176,64 +180,75 @@ KERNELS = {
                         "mccnn_tpu/ops/cbca_fused2.py:85"),
     "cbca_stream": ("mccnn_tpu_torch/csrc/cbca_stream.cu",
                     "tools/bench_cbca_stream.py:44"),
+    # no pallas_call: JAX runs the fills as a lax.scan
+    "border_fill": ("mccnn_tpu_torch/csrc/border_fill.cu",
+                    "none (mccnn_tpu/ops/cost_volume.py:217, :272, XLA)"),
 }
 PROBE_ITERS = 4  # the stream probe's ITERS: a check, a warm-up, the rounds
 # launches per pair on each driven path; kernels not named are launched 0
 # times there
 PER_PAIR = {
-    "serve": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
-    "match exact-f32": {"band_side": 2, "cbca_stencil_round": 36,
-                        "sgm_sweep": 8},
-    "match int8 d-chunked": {"band_side": 2, "cbca_round_int8": 72,
-                             "sgm_sweep": 8},
-    "match stage_times": {"band_pair": 1, "cbca_stencil_round": 36,
-                          "sgm_sweep": 8},
-    "match rolling bf16": {"band_side": 2, "cbca_rolling_round": 36,
-                           "sgm_sweep": 8},
-    "match fused2 bf16": {"band_side": 2, "cbca_two_rounds": 18,
-                          "sgm_sweep": 8},
-    "match fused2_16 f32": {"band_side": 2, "cbca_two_rounds": 18,
-                            "sgm_sweep": 8},
-    "pipeline rolling16 sgm_u8": {"band_side": 2, "cbca_rolling_round": 36,
-                                  "sgm_sweep": 8},
+    "serve": {"band_side": 2, "border_fill": 2, "cbca_round": 36,
+              "sgm_sweep": 8},
+    "match exact-f32": {"band_side": 2, "border_fill": 2,
+                        "cbca_stencil_round": 36, "sgm_sweep": 8},
+    "match int8 d-chunked": {"band_side": 2, "border_fill": 2,
+                             "cbca_round_int8": 72, "sgm_sweep": 8},
+    "match stage_times": {"band_pair": 1, "border_fill": 2,
+                          "cbca_stencil_round": 36, "sgm_sweep": 8},
+    "match rolling bf16": {"band_side": 2, "border_fill": 2,
+                           "cbca_rolling_round": 36, "sgm_sweep": 8},
+    "match fused2 bf16": {"band_side": 2, "border_fill": 2,
+                          "cbca_two_rounds": 18, "sgm_sweep": 8},
+    "match fused2_16 f32": {"band_side": 2, "border_fill": 2,
+                            "cbca_two_rounds": 18, "sgm_sweep": 8},
+    "pipeline rolling16 sgm_u8": {"band_side": 2, "border_fill": 2,
+                                  "cbca_rolling_round": 36, "sgm_sweep": 8},
     "raw bands": {"band_scores": 1},
     "stream probe": {"cbca_stream": PROBE_ITERS + 2},
     # the training phase's last checkpoint through the serving path
-    "trained serve": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
+    "trained serve": {"band_side": 2, "border_fill": 2, "cbca_round": 36,
+                      "sgm_sweep": 8},
     # phase 9: train_fullscale's two evaluations (fast pairs only), one
     # eval_fullscale run on one family (a fast pair, then the exact pair:
-    # f32 volumes by matrix products, K2 in f32, K3) and parity_eval (per
-    # scene: the exact row, K1 2, K2 6 (2 x (1 + 2) rounds), K3 8, and
-    # the mxu row, K1 2, K3 8)
-    "quality train_fullscale": {"band_side": 2, "cbca_round": 36,
-                                "sgm_sweep": 8},
-    "quality eval_fullscale": {"band_side": 2, "cbca_round": 36 + 36,
-                               "sgm_sweep": 8 + 8},
-    "quality parity_eval": {"band_side": 4, "cbca_round": 6,
-                            "sgm_sweep": 16},
+    # f32 volumes by matrix products and the fills, K2 in f32, K3) and
+    # parity_eval (per scene: the exact row, K1 2, K2 6 (2 x (1 + 2)
+    # rounds), K3 8, and the mxu row, K1 2, K3 8; the fills after each K1)
+    "quality train_fullscale": {"band_side": 2, "border_fill": 2,
+                                "cbca_round": 36, "sgm_sweep": 8},
+    "quality eval_fullscale": {"band_side": 2, "border_fill": 2 + 2,
+                               "cbca_round": 36 + 36, "sgm_sweep": 8 + 8},
+    "quality parity_eval": {"band_side": 4, "border_fill": 4,
+                            "cbca_round": 6, "sgm_sweep": 16},
     # phase 10: make_sharded_match on two ranks, launches of each rank
     # (every pass one kernel call on the rank's halo-extended block)
-    "sharded fused (per rank)": {"band_side": 2, "cbca_round": 36,
-                                 "sgm_sweep": 8},
-    "sharded exact-f32 (per rank)": {"band_side": 2,
+    "sharded fused (per rank)": {"band_side": 2, "border_fill": 2,
+                                 "cbca_round": 36, "sgm_sweep": 8},
+    "sharded exact-f32 (per rank)": {"band_side": 2, "border_fill": 2,
                                      "cbca_stencil_round": 36,
                                      "sgm_sweep": 8},
-    "sharded fused8 (per rank)": {"band_side": 2, "cbca_round_int8": 36,
-                                  "sgm_sweep": 8},
+    "sharded fused8 (per rank)": {"band_side": 2, "border_fill": 2,
+                                  "cbca_round_int8": 36, "sgm_sweep": 8},
     # SHARDED_ODD_ROUNDS: (1 + 2) K9 passes and 1 + 1 odd rounds on K2 a
     # volume
-    "sharded fused2 (per rank)": {"band_side": 2, "cbca_two_rounds": 6,
-                                  "cbca_round": 4, "sgm_sweep": 8},
-    "sharded rolling (per rank)": {"band_side": 2, "cbca_rolling_round": 36,
-                                   "sgm_sweep": 8},
+    "sharded fused2 (per rank)": {"band_side": 2, "border_fill": 2,
+                                  "cbca_two_rounds": 6, "cbca_round": 4,
+                                  "sgm_sweep": 8},
+    "sharded rolling (per rank)": {"band_side": 2, "border_fill": 2,
+                                   "cbca_rolling_round": 36, "sgm_sweep": 8},
     # the joint-region CBCA is torch ops on each rank's halo-extended block
-    "sharded joint (per rank)": {"band_side": 2, "sgm_sweep": 8},
+    "sharded joint (per rank)": {"band_side": 2, "border_fill": 2,
+                                 "sgm_sweep": 8},
     # phase 11: one pair of each bench config (mccnn_tpu_torch/bench.py);
     # full aggregates D_pad 512 in two 256-lane chunks
-    "bench half": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
-    "bench halfexact": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
-    "bench quarter": {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8},
-    "bench full": {"band_side": 2, "cbca_round": 72, "sgm_sweep": 8},
+    "bench half": {"band_side": 2, "border_fill": 2, "cbca_round": 36,
+                   "sgm_sweep": 8},
+    "bench halfexact": {"band_side": 2, "border_fill": 2, "cbca_round": 36,
+                        "sgm_sweep": 8},
+    "bench quarter": {"band_side": 2, "border_fill": 2, "cbca_round": 36,
+                      "sgm_sweep": 8},
+    "bench full": {"band_side": 2, "border_fill": 2, "cbca_round": 72,
+                   "sgm_sweep": 8},
 }
 # the path whose launch count stands in the summary line for each kernel
 OWN_PATH = {
@@ -245,6 +260,7 @@ OWN_PATH = {
     "cbca_rolling_round": "match rolling bf16",
     "cbca_two_rounds": "match fused2 bf16",
     "cbca_stream": "stream probe",
+    "border_fill": "serve",
 }
 # K10 is timed at the tiling of K2 and K7 (a 256-row band of a 32-column
 # strip, one 32-byte sector per pixel: 16 bf16 lanes) and at the 32 x 32 x
@@ -360,6 +376,8 @@ def check_kernels(device, errors: Errors) -> None:
         band_pair_scores_plain,
         band_side,
         band_side_plain,
+        border_fill,
+        border_fill_plain,
     )
     from mccnn_tpu_torch.ops.sgm import (
         _DIRECTIONS,
@@ -416,6 +434,16 @@ def check_kernels(device, errors: Errors) -> None:
                         got[..., ndisp:], one[..., ndisp:])):
                     raise AssertionError(
                         f"band_pair {tag} {side}: {off} from band_side")
+            # K11 on both bands, in place: the torch-op loop's values bit
+            # for bit, pad lanes untouched
+            for side, band in zip(("left", "right"), ones):
+                got = border_fill(band.clone(), ndisp, side)
+                want = border_fill_plain(band.clone(), ndisp, side)
+                err = (got.float() - want.float()).abs().max().item()
+                errors.record("border_fill", f"{tag} {side}", err, 0.0)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"border_fill {tag} {side}: "
+                                         "differs from the torch-op loop")
             volume = ones[0]
             got = cbca_fused(volume, arms, 1, config.cbca_distance)
             want = cbca(volume, arms, 1, config.cbca_distance)
@@ -1235,6 +1263,73 @@ def compare_side_f32(errors: Errors, ndisp: int, what: str, got,
                              "from the plain version")
 
 
+def fill_bound(height: int, ndisp: int, item_bytes: int):
+    """K11's bound: each row's triangle, ndisp (ndisp - 1) / 2 values,
+    written once, and each lane's three window values read once; a value
+    takes three adds and a multiply."""
+    values = height * ndisp * (ndisp - 1) // 2
+    return bound(item_bytes * (values + 3 * height * (ndisp - 1)),
+                 4 * values, "f32")
+
+
+def border_times(times: dict, fl, fr, ndisp: int, d_pad: int, dtype,
+                 pair) -> None:
+    """K11 on the serving path's bands, in place (a launch writes the
+    values the last one wrote: a step reads only columns no earlier step
+    wrote on its lane), beside the torch-op loop: its CUDA-event time, its
+    host's enqueue and its kernels' device time; then both sides at the
+    full config's shape (2048 x 3072, ndisp 400, D_pad 512)."""
+    import torch
+    from mccnn_tpu_torch.ops.common import BIG_COST
+    from mccnn_tpu_torch.ops.cost_volume import (
+        band_side,
+        border_fill,
+        border_fill_plain,
+    )
+
+    bands = {"left": band_side(fl, fr, ndisp, d_pad, "left", dtype),
+             "right": band_side(fr, fl, ndisp, d_pad, "right", dtype)}
+    pair("border_fill", lambda: border_fill(bands["left"], ndisp, "left"),
+         lambda: border_fill_plain(bands["left"], ndisp, "left"), 20, 2)
+    entry = times["border_fill"]
+    entry["ms_right"] = time_events(
+        lambda: border_fill(bands["right"], ndisp, "right"), 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    border_fill_plain(bands["left"], ndisp, "left")
+    entry["plain_host_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    _, entry["plain_device_ms"], _ = profiled(
+        lambda: border_fill_plain(bands["left"], ndisp, "left"))
+    del bands
+    height, width, ndisp_full, d_full = 2048, 3072, 400, 512
+    volume = torch.empty((height, width, d_full), dtype=dtype,
+                         device=fl.device).uniform_(-1, 1)
+    volume[..., ndisp_full:] = BIG_COST
+    for side in ("left", "right"):
+        got = border_fill(volume.clone(), ndisp_full, side)
+        if not torch.equal(got, border_fill_plain(volume.clone(),
+                                                  ndisp_full, side)):
+            raise AssertionError(f"border_fill {side} at 2048 x 3072 x 512"
+                                 " differs from the torch-op loop")
+        del got
+        key = "ms_full" if side == "left" else "ms_full_right"
+        entry[key] = time_events(
+            lambda s=side: border_fill(volume, ndisp_full, s), 20)
+    entry["plain_ms_full"] = time_events(
+        lambda: border_fill_plain(volume, ndisp_full, "left"), 2)
+    entry["bound_ms_full"], _ = fill_bound(height, ndisp_full, 2)
+    del volume
+    log(f"  {'border_fill':18s} left {entry['ms']:.4f}, right "
+        f"{entry['ms_right']:.4f} ms; the loop {entry['plain_ms']:.4f} ms "
+        f"(host {entry['plain_host_ms']:.4f}, its kernels "
+        f"{entry['plain_device_ms']:.4f}); at {height} x {width} x {d_full},"
+        f" ndisp {ndisp_full}: left {entry['ms_full']:.4f}, right "
+        f"{entry['ms_full_right']:.4f} ms, the loop "
+        f"{entry['plain_ms_full']:.4f} ms, bound "
+        f"{entry['bound_ms_full']:.4f} ms")
+
+
 def main_shape_kernels(device, errors: Errors) -> dict:
     """Phase 7: each kernel against its plain version at the main-path
     shapes (1000 x 1504, ndisp 200, D_pad 256; K1-K3 in bf16 as the serving
@@ -1268,6 +1363,8 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         band_pair_scores_plain,
         band_side,
         band_side_plain,
+        border_fill,
+        border_fill_plain,
     )
     from mccnn_tpu_torch.ops.sgm import (
         _DIRECTIONS,
@@ -1306,6 +1403,11 @@ def main_shape_kernels(device, errors: Errors) -> dict:
         compare("band_side", side, volume,
                 band_side_plain(anchor, other, ndisp, d_pad, side, dtype),
                 2.0 ** -8)
+        # K11 on a copy (the volume below stays unfilled): the torch-op
+        # loop's values bit for bit
+        compare("border_fill", side,
+                border_fill(volume.clone(), ndisp, side),
+                border_fill_plain(volume.clone(), ndisp, side), 0.0)
         arms = compute_arms(image, config.cbca_intensity, distance)
         inv = inverse_region_size(arms, distance).contiguous()
         aggregated = torch.empty_like(volume)
@@ -1474,6 +1576,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
          lambda: band_side(fl, fr, ndisp, d_pad, "left", dtype),
          lambda: band_side_plain(fl, fr, ndisp, d_pad, "left", dtype),
          10, 2)
+    border_times(times, fl, fr, ndisp, d_pad, dtype, pair)
     pair("cbca_round",
          lambda: cbca_round_cuda(volume, out, arms, inv, distance),
          lambda: cbca_round(volume, arms, inv, distance),
@@ -1736,6 +1839,7 @@ def main_shape_kernels(device, errors: Errors) -> dict:
             2 * height * width * 64 * 4 + 2 * elements * 4, scores_flop,
             "f32"),
         "cbca_stream": bound(2 * tiled.numel() * 2, 0, "f32"),
+        "border_fill": fill_bound(height, ndisp, 2),
     }
     for name, (ms, by) in bounds.items():
         times[name].update(bound_ms=ms, bound_by=by)

@@ -65,6 +65,7 @@ _SIGNATURES = {
     "mccnn_cbca_stream": (_P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _P),
     "mccnn_sgm_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _F, _F, _I, _P),
+    "mccnn_border_fill": (_P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -73,7 +74,8 @@ class LaunchCounts:
 
     NAMES = ("band_side", "cbca_round", "sgm_sweep", "cbca_round_int8",
              "band_pair", "cbca_stencil_round", "band_scores",
-             "cbca_rolling_round", "cbca_two_rounds", "cbca_stream")
+             "cbca_rolling_round", "cbca_two_rounds", "cbca_stream",
+             "border_fill")
 
     def __init__(self):
         self.counts = dict.fromkeys(self.NAMES, 0)

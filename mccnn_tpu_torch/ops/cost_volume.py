@@ -5,8 +5,12 @@
 
 over 64-d unit descriptors, in ``(H, W, D_pad)`` volumes whose lanes
 ``d >= ndisp`` hold ``BIG_COST``. Entries with no correspondence are then
-filled sequentially with the mean of the <= 3 nearest columns
-(``_border_fill_left`` / ``_border_fill_right``).
+filled sequentially, in place, with the mean of the <= 3 nearest columns
+(``border_fill``, the counterpart of ``_border_fill_left`` /
+``_border_fill_right``): on a CUDA tensor kernel K11 (``csrc/border_fill.cu``,
+one launch a side, bit-equal to the torch-op loop on the card), on a CPU
+tensor that loop, ``border_fill_plain``. K11 replaces no TPU kernel: JAX
+runs the fills as a ``lax.scan``.
 
 ``band_side`` is the wrapper of kernel K1 (``csrc/band.cu``, replacing
 mccnn_tpu/ops/cost_volume_pallas.py::_band_kernel_mxu_one) and
@@ -318,10 +322,10 @@ def _cost_volume_pair_xla(features_left, features_right, ndisp, sides, dtype,
     if sides != "left":
         scores_right = _right_from_left(scores_left, ndisp)
     if sides != "right":
-        scores_left = _border_fill_left(scores_left, ndisp)
+        scores_left = border_fill(scores_left, ndisp, "left")
         out.append(torch.where(real, -scores_left, big))
     if sides != "left":
-        scores_right = _border_fill_right(scores_right, ndisp)
+        scores_right = border_fill(scores_right, ndisp, "right")
         out.append(torch.where(real, -scores_right, big))
     return tuple(out) if sides == "both" else out[0]
 
@@ -352,22 +356,24 @@ def cost_volume_pair(features_left: torch.Tensor,
     if sides == "both":
         left, right = band_pair(features_left, features_right, ndisp, d_pad,
                                 dtype)
-        return (_border_fill_left(left, ndisp),
-                _border_fill_right(right, ndisp))
+        return (border_fill(left, ndisp, "left"),
+                border_fill(right, ndisp, "right"))
     if sides == "left":
         volume = band_side(features_left, features_right, ndisp, d_pad,
                            "left", dtype)
-        return _border_fill_left(volume, ndisp)
+        return border_fill(volume, ndisp, "left")
     volume = band_side(features_right, features_left, ndisp, d_pad, "right",
                        dtype)
-    return _border_fill_right(volume, ndisp)
+    return border_fill(volume, ndisp, "right")
 
 
 def _fill_mean(cols: torch.Tensor, count: int, dtype: torch.dtype):
     """Mean of ``count`` gathered columns (H, count, n) in JAX's rounding.
 
     The sum runs in f32 and is stored in the volume dtype before the f32
-    division (jnp.sum of a bf16 block returns bf16).
+    division (jnp.sum of a bf16 block returns bf16). On the card torch
+    divides by ``count`` as a product with its f32 reciprocal, which K11
+    repeats (``csrc/border_fill.cu``).
     """
     total = cols.float().sum(dim=1)
     if dtype != torch.float32:
@@ -375,27 +381,41 @@ def _fill_mean(cols: torch.Tensor, count: int, dtype: torch.dtype):
     return (total / count).to(dtype)
 
 
-def _border_fill_left(volume: torch.Tensor, ndisp: int) -> torch.Tensor:
-    """In place, for d = ndisp-1 .. 1: column d-1 gets, on lanes [d, ndisp),
-    the mean of columns d..d+2 (clipped at the image edge).
-
-    ndisp - 1 dependent steps on real lanes only; they stay torch ops.
-    """
+def border_fill_plain(volume: torch.Tensor, ndisp: int,
+                      side: str) -> torch.Tensor:
+    """In place, for d = ndisp-1 .. 1, on lanes [d, ndisp): "left", column
+    d-1 gets the mean of columns d..d+2; "right", column W-d gets the mean
+    of columns W-d-3..W-d-1 (clipped at the image edge). ndisp - 1
+    dependent steps of torch ops."""
     width = volume.shape[1]
     for d in range(ndisp - 1, 0, -1):
-        hi = min(d + 3, width)
-        volume[:, d - 1, d:ndisp] = _fill_mean(
-            volume[:, d:hi, d:ndisp], hi - d, volume.dtype)
+        if side == "left":
+            col, lo, hi = d - 1, d, min(d + 3, width)
+        else:
+            col = width - d
+            lo, hi = max(col - 3, 0), col
+        volume[:, col, d:ndisp] = _fill_mean(
+            volume[:, lo:hi, d:ndisp], hi - lo, volume.dtype)
     return volume
 
 
-def _border_fill_right(volume: torch.Tensor, ndisp: int) -> torch.Tensor:
-    """In place, for d = ndisp-1 .. 1: column W-d gets, on lanes [d, ndisp),
-    the mean of columns W-d-3..W-d-1 (clipped at the image edge)."""
-    width = volume.shape[1]
-    for d in range(ndisp - 1, 0, -1):
-        col = width - d
-        lo = max(col - 3, 0)
-        volume[:, col, d:ndisp] = _fill_mean(
-            volume[:, lo:col, d:ndisp], col - lo, volume.dtype)
+def border_fill(volume: torch.Tensor, ndisp: int, side: str) -> torch.Tensor:
+    """K11 wrapper: fills ``volume`` (H, W, D_pad) in place and returns it;
+    kernel on CUDA, ``border_fill_plain`` on the CPU."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    if volume.device.type == "cpu":
+        return border_fill_plain(volume, ndisp, side)
+    require_cuda("volume", volume, _STORAGE)
+    height, width, d_pad = volume.shape
+    if ndisp < 2 or height == 0:
+        return volume  # no step to take
+    if ndisp > min(width, d_pad):
+        raise ValueError(f"ndisp {ndisp} exceeds the volume's width {width} "
+                         f"or depth {d_pad}")
+    code = library().mccnn_border_fill(
+        volume.data_ptr(), height, width, d_pad, ndisp, int(side == "right"),
+        int(volume.dtype == torch.bfloat16), stream_handle(volume))
+    check(code, "border_fill")
+    LAUNCHES.add("border_fill")
     return volume

@@ -161,10 +161,11 @@ def test_library_name_follows_the_sources():
     assert path.name.startswith("libmccnn_kernels_")
     assert path == build.library_path()  # stable for unchanged sources
     assert {p.name for p in build.SOURCE_DIR.glob("*.cu")} == {
-        "band.cu", "band_pair.cu", "band_vpu.cu", "cbca_rolling.cu",
-        "cbca_round.cu", "cbca_round_int8.cu", "cbca_stencil.cu",
-        "cbca_stream.cu", "cbca_two_round.cu", "sgm_sweep.cu"}
-    assert len(build.LAUNCHES.NAMES) == 10
+        "band.cu", "band_pair.cu", "band_vpu.cu", "border_fill.cu",
+        "cbca_rolling.cu", "cbca_round.cu", "cbca_round_int8.cu",
+        "cbca_stencil.cu", "cbca_stream.cu", "cbca_two_round.cu",
+        "sgm_sweep.cu"}
+    assert len(build.LAUNCHES.NAMES) == 11
 
 
 @pytest.mark.cuda
@@ -273,7 +274,8 @@ def test_kernel_path_matches_plain_path(volume_dtype):
     want = match_pair(net, left, right, 40, volume_dtype=volume_dtype)
     net = copy.deepcopy(net).to(device)
     left, right = left.to(device), right.to(device)
-    per_pair = {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8}
+    per_pair = {"band_side": 2, "border_fill": 2, "cbca_round": 36,
+                "sgm_sweep": 8}
     for cbca_impl in ("auto", "xla"):  # every accepted name runs K2
         build.LAUNCHES.reset()
         got = match_pair(net, left, right, 40, volume_dtype=volume_dtype,
@@ -495,21 +497,24 @@ def test_batch_schedules_launch_their_kernels():
         return out, _launched()
 
     exact, counts = run(cbca_impl="pallas")
-    assert counts == {"band_side": 2, "cbca_stencil_round": 36,
-                      "sgm_sweep": 8}
+    assert counts == {"band_side": 2, "border_fill": 2,
+                      "cbca_stencil_round": 36, "sgm_sweep": 8}
     staged, counts = run(stage_times=True, cbca_impl="pallas")
-    assert counts == {"band_pair": 1, "cbca_stencil_round": 36,
-                      "sgm_sweep": 8}
+    assert counts == {"band_pair": 1, "border_fill": 2,
+                      "cbca_stencil_round": 36, "sgm_sweep": 8}
     np.testing.assert_array_equal(staged, exact)
     fused, counts = run()
-    assert counts == {"band_side": 2, "cbca_round": 36, "sgm_sweep": 8}
+    assert counts == {"band_side": 2, "border_fill": 2, "cbca_round": 36,
+                      "sgm_sweep": 8}
     np.testing.assert_array_equal(fused, exact)  # K2 == K7 in f32
     chunked, counts = run(cbca_chunk_d=128)
-    assert counts == {"band_side": 2, "cbca_round": 72, "sgm_sweep": 8}
+    assert counts == {"band_side": 2, "border_fill": 2, "cbca_round": 72,
+                      "sgm_sweep": 8}
     np.testing.assert_array_equal(chunked, exact)
     int8, counts = run(cbca_impl="fused8", volume_dtype="bfloat16",
                        cbca_chunk_d=128)
-    assert counts == {"band_side": 2, "cbca_round_int8": 72, "sgm_sweep": 8}
+    assert counts == {"band_side": 2, "border_fill": 2,
+                      "cbca_round_int8": 72, "sgm_sweep": 8}
     assert np.isfinite(int8).all()
     assert np.mean(np.abs(int8 - exact) > 2.0) <= 0.05
 
@@ -850,20 +855,21 @@ def test_variant_schedules_launch_their_kernels():
 
     fused, _ = run()
     rolling, counts = run(cbca_impl="rolling")
-    assert counts == {"band_side": 2, "cbca_rolling_round": 36,
-                      "sgm_sweep": 8}
+    assert counts == {"band_side": 2, "border_fill": 2,
+                      "cbca_rolling_round": 36, "sgm_sweep": 8}
     np.testing.assert_array_equal(rolling, fused)
     two, counts = run(cbca_impl="fused2")
-    assert counts == {"band_side": 2, "cbca_two_rounds": 18, "sgm_sweep": 8}
+    assert counts == {"band_side": 2, "border_fill": 2,
+                      "cbca_two_rounds": 18, "sgm_sweep": 8}
     np.testing.assert_array_equal(two, fused)
     odd = MatchConfig(cbca_num_iterations_1=3, cbca_num_iterations_2=5)
     two_odd, counts = run(odd, cbca_impl="fused2")
-    assert counts == {"band_side": 2, "cbca_two_rounds": 6, "cbca_round": 4,
-                      "sgm_sweep": 8}
+    assert counts == {"band_side": 2, "border_fill": 2,
+                      "cbca_two_rounds": 6, "cbca_round": 4, "sgm_sweep": 8}
     np.testing.assert_array_equal(two_odd, run(odd)[0])
     coded, counts = run(MatchConfig(sgm_u8=True), cbca_impl="rolling")
-    assert counts == {"band_side": 2, "cbca_rolling_round": 36,
-                      "sgm_sweep": 8}
+    assert counts == {"band_side": 2, "border_fill": 2,
+                      "cbca_rolling_round": 36, "sgm_sweep": 8}
     np.testing.assert_array_equal(coded, fused)
     mixed = [run(cbca_impl=impl)[0]
              for impl in ("fused16", "rolling16", "fused2_16")]
@@ -872,7 +878,8 @@ def test_variant_schedules_launch_their_kernels():
     for config, kwargs in ((MatchConfig(), {"cbca_impl": "mxu"}),
                            (MatchConfig(cbca_joint_regions=True), {})):
         got, counts = run(config, **kwargs)
-        assert counts == {"band_side": 2, "sgm_sweep": 8}  # torch ops
+        # the joint and mxu CBCA are torch ops
+        assert counts == {"band_side": 2, "border_fill": 2, "sgm_sweep": 8}
         want = MatchPipeline(params, config, bucket=1, device="cpu",
                              **kwargs)(left, right, ndisp)
         # cuDNN and CPU convolutions round apart, so a few WTA ties flip
