@@ -4,9 +4,10 @@ the comparison with the plain reference, the result line.
 Everything that belongs to one configuration, traffic mix or metric lives
 in a file of its own, found by the name ``BENCHMARK.json`` gives it:
 
-* ``benchmark/configs/<config>.json``: the sizes, the ``MatchPipeline``
-  options, the scene pool, the reference's name and the limits of the
-  comparison;
+* ``benchmark/configs/<config>.json`` (the ``file`` that
+  ``BENCHMARK.json`` gives the configuration): the net, the sizes, the
+  ``MatchPipeline`` options, the scene pool, the reference's name and the
+  limits of the comparison;
 * ``benchmark/traffic/<traffic>.json``: the loop (closed or open), the
   scene families in turn and, for an open loop, the rate;
 * ``benchmark/metrics/<metric>.py``: ``read(run)`` returns the metric's
@@ -16,6 +17,24 @@ in a file of its own, found by the name ``BENCHMARK.json`` gives it:
 
 The program under test is ``mccnn_tpu_torch``'s ``MatchPipeline``, driven
 through ``dispatch`` and ``fetch`` as its server drives it.
+
+A configuration's ``net`` states the MC-CNN architecture by the paper's
+hyperparameters (Zbontar & LeCun, arXiv:1510.05970, section 3):
+``num_layers`` N convolutions of ``num_maps`` maps, ``kernel_size``
+square and VALID, on ``input_channels`` channels, and optionally
+``num_fc_layers`` L and ``num_fc_units`` U. Without them, or with L = 0,
+the net is the fast one: ``conv1..convN``, the last without ReLU, the two
+descriptors normalised and compared by a dot product. With L > 0 it is
+the accurate one, whose layers are, in this order:
+
+* ``conv1..convN``, ReLU after each, the last too, no normalisation;
+* ``fc1``: 2 * ``num_maps`` -> U, its input ``[left ; right]``, the left
+  patch's descriptor first;
+* ``fc2..fcL``: U -> U, ReLU after each of ``fc1..fcL``;
+* ``fc{L+1}``: U -> 1, a sigmoid s; the matching cost is -s.
+
+``make_weights`` draws every one of these layers, and ``params_tree``
+gives them in the program's format.
 """
 
 from __future__ import annotations
@@ -70,13 +89,16 @@ def _applies(metric: dict, workload: str) -> bool:
 def load_cell(workload: str, manifest: dict | None = None,
               overrides: dict | None = None) -> Cell:
     """The cell named ``workload`` in ``BENCHMARK.json``, with its files
-    read; ``overrides`` replace configuration keys (the CPU tests' sizes)."""
+    read: the configuration from the ``file`` its entry names (relative to
+    the checkout), the traffic by name; ``overrides`` replace
+    configuration keys (the CPU tests' sizes)."""
     manifest = manifest or read_json(ROOT / "BENCHMARK.json")
     entry = next((w for w in manifest["workloads"] if w["name"] == workload),
                  None)
     if entry is None:
         raise SystemExit(f"unknown workload {workload!r}")
-    config = read_json(BENCH / "configs" / f"{entry['config']}.json")
+    files = {c["name"]: c["file"] for c in manifest["configs"]}
+    config = read_json(ROOT / files[entry["config"]])
     config.update(overrides or {})
     traffic = read_json(BENCH / "traffic" / f"{entry['traffic']}.json")
     return Cell(
@@ -107,32 +129,50 @@ def metric_reader(name: str):
 # ---- inputs made from the seed ----------------------------------------------
 
 def make_weights(seed: int, net: dict, device):
-    """Glorot-uniform OIHW weights and small uniform biases of the fast
-    net, drawn on the device in two calls."""
+    """Glorot-uniform weights and small uniform biases of every layer of
+    ``net`` (the module docstring's layout), drawn on the device in two
+    calls: all weights, then all biases, in layer order. Returns (weights,
+    biases), lists in layer order: convolutions OIHW, fully connected
+    layers (out, in) as ``F.linear`` takes them. A net without fully
+    connected layers draws what the fast net always drew, call for call."""
     import torch
 
     k, maps, cin = net["kernel_size"], net["num_maps"], net["input_channels"]
     shapes = [(maps, cin if i == 0 else maps, k, k)
               for i in range(net["num_layers"])]
+    fc_layers = net.get("num_fc_layers", 0)
+    if fc_layers:
+        units = net["num_fc_units"]
+        shapes += ([(units, 2 * maps)] + [(units, units)] * (fc_layers - 1)
+                   + [(1, units)])
     sizes = [math.prod(s) for s in shapes]
+    widths = [s[0] for s in shapes]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(np.random.default_rng([seed, 1]).integers(2**62)))
     flat = torch.rand(sum(sizes), generator=gen, device=device) * 2 - 1
-    bias = (torch.rand(len(shapes) * maps, generator=gen, device=device)
+    bias = (torch.rand(sum(widths), generator=gen, device=device)
             * 2 - 1) * net["bias_range"]
     weights = []
     for shape, chunk in zip(shapes, torch.split(flat, sizes)):
-        fan_in, fan_out = k * k * shape[1], k * k * shape[0]
+        receptive = math.prod(shape[2:])
+        fan_in, fan_out = receptive * shape[1], receptive * shape[0]
         limit = math.sqrt(6.0 / (fan_in + fan_out))
         weights.append((chunk * limit).reshape(shape).contiguous())
-    return weights, list(torch.split(bias, maps))
+    return weights, list(torch.split(bias, widths))
 
 
 def params_tree(weights, biases) -> dict:
-    """The program's weight format: {"conv{i}": {"w": HWIO, "b"}} numpy."""
-    return {f"conv{i + 1}": {"w": w.permute(2, 3, 1, 0).cpu().numpy(),
-                             "b": b.cpu().numpy()}
-            for i, (w, b) in enumerate(zip(weights, biases))}
+    """The program's weight format, numpy: {"conv{i}": {"w": HWIO, "b"}}
+    for the convolutions and {"fc{j}": {"w": (in, out), "b": (out,)}} for
+    the fully connected layers, input before output as HWIO has it."""
+    tree, counts = {}, {"conv": 0, "fc": 0}
+    for w, b in zip(weights, biases):
+        kind = "conv" if w.dim() == 4 else "fc"
+        counts[kind] += 1
+        layout = w.permute(2, 3, 1, 0) if kind == "conv" else w.t()
+        tree[f"{kind}{counts[kind]}"] = {"w": layout.cpu().numpy(),
+                                         "b": b.cpu().numpy()}
+    return tree
 
 
 def make_pool(seed: int, config: dict, traffic: dict, device) -> list:

@@ -123,3 +123,53 @@ def test_open_loop_arrivals_are_the_same_gaps_in_another_order():
     gaps_b = sorted(list(b[1:] - b[:-1]) + [40.0 - b[-1]])
     assert gaps_a == pytest.approx(gaps_b)
     assert not (a == b).all()
+
+
+ACCURATE = {"num_layers": 5, "num_maps": 112, "kernel_size": 3,
+            "input_channels": 1, "num_fc_layers": 3, "num_fc_units": 384}
+
+
+def test_accurate_net_counts_at_half_size():
+    # 1000 x 1504 pixels, 200 disparities, 112 maps, 3 x 384 FC by hand
+    stages = arith.pair_stage_flops(1000, 1504, 200, 18, "bfloat16",
+                                    ACCURATE)
+    assert list(stages) == ["features", "decision", "cbca", "sgm", "wta"]
+    features = 2 * 1000 * 1504 * 2 * 9 * 112 * 449
+    assert stages["features"] == (features, "float32")
+    assert features / 1e12 == pytest.approx(2.7228, abs=5e-5)
+    decision = (2 * 1000 * 1504 * 2 * 112 * 384
+                + 1000 * 1504 * 200 * (2 * 2 * 384**2 + 4 * 384))
+    assert stages["decision"] == (decision, "bfloat16")
+    assert decision / 1e12 == pytest.approx(178.14, abs=5e-3)
+    ideal = arith.ideal_pair_seconds(1000, 1504, 200, 18, "bfloat16",
+                                     ACCURATE)
+    assert ideal == pytest.approx(0.2218, abs=5e-5)
+    # the decision network is most of the ideal; the fast band is not
+    assert stages["decision"][0] / 989e12 / ideal > 0.8
+
+
+def test_fast_net_stated_or_left_out_counts_alike():
+    fast = {"patch_size": 11, "num_layers": 5, "num_maps": 64,
+            "kernel_size": 3, "input_channels": 1, "bias_range": 0.05}
+    for size in ((1000, 1504, 200), (2000, 3072, 400)):
+        assert arith.pair_stage_flops(*size, 18, "bfloat16", fast) == (
+            arith.pair_stage_flops(*size, 18, "bfloat16"))
+        assert arith.conv_flops(*size[:2], fast) == arith.conv_flops(
+            *size[:2])
+
+
+@pytest.mark.parametrize("cell", ["half-stream-mix", "full-stream-mix"])
+def test_pair_mfu_is_the_fast_formula_to_the_bit(cell):
+    # the reader's value before it took the configuration's net, written
+    # out: the fast net's five stages at their peaks
+    run = _run(cell, pairs=7, window=2.25)
+    c = run.config
+    h, w, d = c["height"], c["width"], c["ndisp"]
+    volume = float(h) * w * d
+    stages = [(2.0 * h * w * 2 * 9 * 64 * (1 + 4 * 64), 67e12),
+              (2.0 * h * w * d * 64 * 2, 989e12),
+              (2 * 18 * 5 * volume, 67e12), (2 * 4 * 7 * volume, 67e12),
+              (2 * volume, 67e12)]
+    ideal = sum(flops / peak for flops, peak in stages)
+    assert harness.metric_reader("pair_mfu.stream")(run) == (
+        100.0 * ideal * 7 / 2.25)

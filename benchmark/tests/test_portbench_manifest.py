@@ -1,5 +1,6 @@
 """BENCHMARK.json against its files and the benchmark's contract."""
 
+import copy
 import json
 import re
 import statistics  # noqa: F401  (the readers' own imports are exercised)
@@ -18,7 +19,23 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
         "end_to_end", "per_layer"}
 WIDTHS = re.compile(r"(hidden|intermediate|latent|state|projection|_dim$"
-                    r"|_rank$|head|expansion|per_tok|num_maps|kernel)")
+                    r"|_rank$|head|expansion|per_tok|num_maps|kernel"
+                    r"|fc_units)")
+# the paper's nets for Middlebury (arXiv:1510.05970, its table of
+# hyperparameters): a configuration's ``net`` states one of them whole
+PUBLISHED_NETS = {
+    "fast": {"num_layers": 5, "num_maps": 64, "kernel_size": 3,
+             "num_fc_layers": 0, "num_fc_units": 0},
+    "accurate": {"num_layers": 5, "num_maps": 112, "kernel_size": 3,
+                 "num_fc_layers": 3, "num_fc_units": 384},
+}
+
+
+def published_net(net: dict):
+    """The name of the published net that ``net`` states on every key of
+    the table (absent fully connected keys read 0), or None."""
+    return next((name for name, row in PUBLISHED_NETS.items()
+                 if all(net.get(k, 0) == v for k, v in row.items())), None)
 
 
 def test_top_level_keys_and_paths():
@@ -97,10 +114,76 @@ def test_names_unique_and_configs_uncut():
         assert not any(WIDTHS.search(k) for k in config["reduced"])
         data = json.loads((ROOT / config["file"]).read_text())
         assert data["reduced"] == config["reduced"]
-        assert data["net"]["num_maps"] == 64
-        assert data["net"]["num_layers"] == 5
+        assert published_net(data["net"]), config["name"]
     used = {w["config"] for w in MANIFEST["workloads"]}
     assert used == {c["name"] for c in MANIFEST["configs"]}
+
+
+ACCURATE_NET = {"patch_size": 11, "num_layers": 5, "num_maps": 112,
+                "kernel_size": 3, "input_channels": 1, "bias_range": 0.05,
+                "num_fc_layers": 3, "num_fc_units": 384}
+
+
+@pytest.mark.parametrize("change, name", [
+    ({}, "fast"),
+    ({"num_fc_layers": 0, "num_fc_units": 0}, "fast"),
+    ({"num_maps": 112}, None),
+    ({"num_fc_layers": 3, "num_fc_units": 384}, None),
+    ({"num_maps": 112, "num_fc_layers": 3, "num_fc_units": 384}, "accurate"),
+    ({"num_maps": 112, "num_fc_layers": 3, "num_fc_units": 256}, None),
+    ({"num_maps": 112, "num_fc_layers": 2, "num_fc_units": 384}, None),
+    ({"kernel_size": 5}, None),
+])
+def test_published_net_is_a_row_of_the_table(change, name):
+    fast = json.loads((ROOT / MANIFEST["configs"][0]["file"]).read_text())
+    assert published_net(dict(fast["net"], **change)) == name
+
+
+def test_a_new_architecture_needs_new_files_only(tmp_path):
+    """An accurate-net configuration in a file of its own, and a cell on
+    it, go through ``load_cell``, ``make_weights``, ``params_tree``,
+    ``arith`` and this file's checks with no edit to an existing file: a
+    run up to building the program."""
+    from portbench import arith
+
+    base = json.loads((ROOT / MANIFEST["configs"][0]["file"]).read_text())
+    name = "mccnn-accurate-mb-half-bf16"
+    path = tmp_path / f"{name}.json"
+    path.write_text(json.dumps(dict(base, name=name, net=ACCURATE_NET)))
+    manifest = copy.deepcopy(MANIFEST)
+    manifest["configs"].append({"name": name, "source": "arXiv:1510.05970",
+                                "file": str(path), "reduced": [],
+                                "why": "MC-CNN accurate"})
+    manifest["workloads"].append({"name": "half-accurate-stream-mix",
+                                  "config": name, "traffic": "stream-mix",
+                                  "chips": 1, "why": "the decision network"})
+    cell = harness.load_cell("half-accurate-stream-mix", manifest)
+    config = cell.config
+    assert config["name"] == name and cell.traffic["loop"] == "closed"
+    assert published_net(config["net"]) == "accurate"
+    assert not any(WIDTHS.search(k) for k in config["reduced"])
+
+    weights, biases = harness.make_weights(2**31 + 5, config["net"], "cpu")
+    tree = harness.params_tree(weights, biases)
+    assert list(tree) == [f"conv{i}" for i in range(1, 6)] + [
+        f"fc{j}" for j in range(1, 5)]
+    assert tree["conv5"]["w"].shape == (3, 3, 112, 112)
+    assert tree["fc1"]["w"].shape == (224, 384)
+    assert tree["fc4"]["w"].shape == (384, 1)
+
+    stages = arith.pair_stage_flops(config["height"], config["width"],
+                                    config["ndisp"], 18, "bfloat16",
+                                    config["net"])
+    assert "decision" in stages and "band" not in stages
+    run = harness.Run(cell=cell)
+    run.window = (0.0, 10.0)
+    req = harness.Request(0, 0, 0.0, config["height"] * config["width"])
+    req.output = object()
+    run.requests.append(req)
+    mfu = harness.metric_reader("pair_mfu.stream")(run)
+    ideal = arith.ideal_pair_seconds(1000, 1504, 200, 18, "bfloat16",
+                                     ACCURATE_NET)
+    assert mfu == pytest.approx(100 * ideal / 10.0)
 
 
 def test_manifest_is_small():
