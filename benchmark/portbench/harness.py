@@ -34,7 +34,10 @@ the accurate one, whose layers are, in this order:
 * ``fc{L+1}``: U -> 1, a sigmoid s; the matching cost is -s.
 
 ``make_weights`` draws every one of these layers, and ``params_tree``
-gives them in the program's format.
+gives them in the program's format. The fast net's layers take the Glorot
+limit; the accurate net's take the He limit, since it has no normalisation:
+Glorot halves a ReLU tower's signal at every layer, and the sigmoid then
+sits at 0.5 whatever the disparity.
 """
 
 from __future__ import annotations
@@ -129,12 +132,19 @@ def metric_reader(name: str):
 # ---- inputs made from the seed ----------------------------------------------
 
 def make_weights(seed: int, net: dict, device):
-    """Glorot-uniform weights and small uniform biases of every layer of
-    ``net`` (the module docstring's layout), drawn on the device in two
-    calls: all weights, then all biases, in layer order. Returns (weights,
-    biases), lists in layer order: convolutions OIHW, fully connected
-    layers (out, in) as ``F.linear`` takes them. A net without fully
-    connected layers draws what the fast net always drew, call for call."""
+    """Uniform weights and small uniform biases of every layer of ``net``
+    (the module docstring's layout), drawn on the device in two calls: all
+    weights, then all biases, in layer order. Returns (weights, biases),
+    lists in layer order: convolutions OIHW, fully connected layers (out,
+    in) as ``F.linear`` takes them.
+
+    A net without fully connected layers takes the Glorot limit sqrt(6 /
+    (fan_in + fan_out)), bit for bit what the fast net always drew: its
+    descriptors are normalised, so their scale cancels. A net with them has
+    no normalisation and takes the He limit sqrt(6 / fan_in) at every layer
+    (arXiv:1502.01852): Glorot halves a ReLU tower's second moment at each
+    layer, and the sigmoid then gives about the same cost at every
+    disparity."""
     import torch
 
     k, maps, cin = net["kernel_size"], net["num_maps"], net["input_channels"]
@@ -156,7 +166,7 @@ def make_weights(seed: int, net: dict, device):
     for shape, chunk in zip(shapes, torch.split(flat, sizes)):
         receptive = math.prod(shape[2:])
         fan_in, fan_out = receptive * shape[1], receptive * shape[0]
-        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        limit = math.sqrt(6.0 / (fan_in if fc_layers else fan_in + fan_out))
         weights.append((chunk * limit).reshape(shape).contiguous())
     return weights, list(torch.split(bias, widths))
 

@@ -9,6 +9,7 @@ import torch
 from torch.nn import functional as F
 
 from portbench import harness
+from portbench.scenes import make_pair
 
 # SHA-256 of the fast net's weights then biases, made on the CPU by the
 # harness before it took fully connected layers: the fast cells' weights
@@ -37,7 +38,7 @@ def test_fast_weights_are_the_same_bits(workload, seed):
     assert digest.hexdigest() == FAST_SHA256[seed]
 
 
-def test_accurate_weights_every_layer_in_order_at_its_glorot_range():
+def test_accurate_weights_every_layer_in_order_at_its_he_range():
     weights, biases = harness.make_weights(2**31 + 11, ACCURATE, "cpu")
     assert [tuple(w.shape) for w in weights] == (
         [(112, 1, 3, 3)] + [(112, 112, 3, 3)] * 4
@@ -45,15 +46,72 @@ def test_accurate_weights_every_layer_in_order_at_its_glorot_range():
     assert [tuple(b.shape) for b in biases] == [(112,)] * 5 + [(384,)] * 3 \
         + [(1,)]
     assert sum(b.numel() for b in biases) == 5 * 112 + 3 * 384 + 1
-    fans = [(9, 112 * 9)] + [(112 * 9, 112 * 9)] * 4 + [
-        (224, 384), (384, 384), (384, 384), (384, 1)]
-    for w, (fan_in, fan_out) in zip(weights, fans):
-        limit = math.sqrt(6.0 / (fan_in + fan_out))
+    fans_in = [9] + [112 * 9] * 4 + [224, 384, 384, 384]
+    for w, fan_in in zip(weights, fans_in):
+        limit = math.sqrt(6.0 / fan_in)
         top = float(w.abs().max())
         assert top <= limit and top > 0.9 * limit
     assert all(float(b.abs().max()) <= 0.05 for b in biases)
     again, _ = harness.make_weights(2**31 + 11, ACCURATE, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(weights, again))
+
+
+def _accurate_s(weights, biases, left, right, ndisp):
+    """The accurate net's s at every pixel and disparity of a pair whose
+    columns all hold a right patch, plainly: ReLU after each convolution,
+    fc1 on [left ; right], ReLU after each hidden layer, a sigmoid."""
+    def descriptors(image):
+        x = torch.from_numpy(image)[None, None]
+        for w, b in zip(weights[:5], biases[:5]):
+            x = F.relu(F.conv2d(x, w, b))
+        return x[0]
+
+    left, right = descriptors(left), descriptors(right)
+    cols = torch.arange(ndisp - 1, left.shape[2])
+    s = []
+    for d in range(ndisp):
+        x = torch.cat([left[:, :, cols], right[:, :, cols - d]]).permute(
+            1, 2, 0)
+        for w, b in zip(weights[5:-1], biases[5:-1]):
+            x = F.relu(F.linear(x, w, b))
+        s.append(torch.sigmoid(F.linear(x, weights[-1], biases[-1]))[..., 0])
+    return torch.stack(s, -1)
+
+
+def _spread_and_ties(weights, biases, family, seed):
+    ndisp = 48
+    left, right = make_pair(family, seed, 0, 64, 160, ndisp - 8, "cpu")
+    s = _accurate_s(weights, biases, left, right, ndisp)
+    best = s.bfloat16()
+    tied = (best == best.amax(-1, keepdim=True)).sum(-1) > 1
+    return float((s.amax(-1) - s.amin(-1)).mean()), float(
+        tied.float().mean())
+
+
+@pytest.mark.parametrize("family", ["translation", "slanted"])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_accurate_seeded_costs_carry_a_signal(seed, family):
+    """He weights spread s over the disparities (0.21-0.36 measured) and
+    leave few pixels with a tied best bf16 cost (0.08-0.18)."""
+    weights, biases = harness.make_weights(seed, ACCURATE, "cpu")
+    spread, tied = _spread_and_ties(weights, biases, family, seed)
+    assert spread >= 0.1
+    assert tied <= 0.3
+
+
+def test_accurate_costs_at_the_glorot_limit_are_flat():
+    """Why the accurate net draws at the He limit: the same tensors scaled
+    to the Glorot limit spread s by less than one bf16 step at 0.5
+    (0.0035 measured), and most pixels' best bf16 cost is tied."""
+    weights, biases = harness.make_weights(0, ACCURATE, "cpu")
+    glorot = []
+    for w in weights:
+        receptive = math.prod(w.shape[2:])
+        fan_in, fan_out = receptive * w.shape[1], receptive * w.shape[0]
+        glorot.append(w * math.sqrt(fan_in / (fan_in + fan_out)))
+    spread, tied = _spread_and_ties(glorot, biases, "translation", 0)
+    assert spread < 2.0**-8
+    assert tied > 0.5
 
 
 def test_params_tree_conv_hwio_and_fc_in_out_left_first():
